@@ -3,26 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, Schur-LM bundle adjustment (``lm_solve``), on
-the bench problem at full size: 6 cameras x 922 frames x 35 board points,
-the frames of BASELINE_PROBLEM.npz and the start of
+Drives the port's two paths at full size. Schur-LM bundle adjustment
+(``lm_solve``) on the bench problem: 6 cameras x 922 frames x 35 board
+points, the frames of BASELINE_PROBLEM.npz and the start of
 ``multicam_calibration_tpu_torch/data/bench_x0.npz``, with the bench's
-options (bench.py:126-137). Phases, one line each:
+options (bench.py:126-137). Chessboard detection
+(``detect_chessboard_batch``) on 480x640 frames of a 5x7 board at batch 128,
+the detection bench's configuration (scripts/bench_detection.py:23-25,
+158-188), from the frames and JAX answers of
+``multicam_calibration_tpu_torch/data/detect_frames.npz``. Phases, one line
+each:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``multicam_calibration_tpu_torch/csrc``;
+2. build the CUDA kernels from ``multicam_calibration_tpu_torch/csrc``, one
+   nvcc per source, all started together;
 3. each kernel against its plain PyTorch twin on the card, at the bench
    shape and at a ragged shape with zero-pose padded frames and a
    near-identity camera, with timings of kernel and twin;
 4. a small ``lm_solve`` through the kernels against the plain path;
 5. the bench problem through the kernels (quality gate: final cost at or
    below scipy TRF's 12338.04, BASELINE_MEASURED.json), with launch counts
-   checked against the solver's own counts, and the plain path timed.
+   checked against the solver's own counts, and the plain path timed;
+6. the corner kernel's build (ptxas registers, shared memory, spills);
+7. the corner kernel against its plain twin on the card, at sigma 1.5, 3.5,
+   6 and 9 with peaks and at sigma 1.5 without, at a ragged shape and the
+   bench shape (128 x 480 x 640), timed at sigma 1.5 and 9;
+8. detection against the JAX package's stored answers: the same accepted
+   frames, corners within 0.01 px, scores within 1e-3; the motion-blur
+   frames must run the coarse sigma ladder (more than one kernel launch);
+9. the full-width timed run: batch 128 (the clean frames tiled, with seeded
+   +-2 noise as the detection bench), >= 10 timed calls after a warm-up,
+   frames/s, detection rate 1.0, RMS corner error < 0.6 px, exactly one
+   kernel launch per call; then one call of the public ``corner_response``.
 
-Then one JSON line describing each kernel, and last the device line. Any
-failed check raises, and the script exits non-zero. It needs a CUDA
-device and the repository around it; it imports no JAX.
+Then one JSON line describing each kernel, with its bound on this card
+(the larger of bytes over 3.35 TB/s and operations over the peak rate of
+their type: 67 TFLOP/s f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet),
+and last the device line. Any failed check raises, and the script exits
+non-zero. It needs a CUDA device and the repository around it; it imports
+no JAX.
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -35,11 +56,20 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCIPY_TRF_COST = 12338.04  # BASELINE_MEASURED.json: the bench's quality gate
-SOURCE = "multicam_calibration_tpu_torch/csrc/ba_kernels.cu"
-REPLACES = {
-    "ba_blocks_kernel": "multicam_calibration_tpu/ops/ba_pallas.py:253",
-    "ba_cost_kernel": "multicam_calibration_tpu/ops/ba_pallas.py:630",
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "ba_blocks_kernel": ("multicam_calibration_tpu_torch/csrc/ba_kernels.cu",
+                         "multicam_calibration_tpu/ops/ba_pallas.py:253"),
+    "ba_cost_kernel": ("multicam_calibration_tpu_torch/csrc/ba_kernels.cu",
+                       "multicam_calibration_tpu/ops/ba_pallas.py:630"),
+    "corner_peaks_kernel": ("multicam_calibration_tpu_torch/csrc/corner_kernels.cu",
+                            "multicam_calibration_tpu/ops/pallas_kernels.py:139"),
+    "corner_response_kernel": ("multicam_calibration_tpu_torch/csrc/corner_kernels.cu",
+                               "multicam_calibration_tpu/ops/pallas_kernels.py:44"),
 }
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 and f64 flop/s outside
+# the tensor cores.
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+BATCH, TIMED_CALLS = 128, 10  # scripts/bench_detection.py: batch 128
 # The bench's LMOptions (bench.py:126-137) as JAX field values.
 BENCH_JAX_OPTIONS = dict(
     jac_dtype="float32", block_dtype="float32", cost_dtype="float32",
@@ -55,6 +85,42 @@ def log(phase, msg):
 def check(ok, msg):
     if not ok:
         raise AssertionError(msg)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the operations over their peak rate; ``ops`` is [(count, flop/s), ...]."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = sum(n / rate for n, rate in ops)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ba_bounds(C, F, N, n_obs, tiles):
+    """Bounds of the two BA kernels at one shape. Bytes: the packs
+    (C x 27, F x 21 f64), board points, observations (f64) and mask (u8)
+    read once, the f32 outputs written once. Operations, counted for the
+    observed points only: the f64 prediction chain, ~60 flops per point
+    (rotate and translate twice, project, distort, scale), and for the block
+    build the 189 distinct normal-block outputs, each a multiply-add over
+    the point's two residual rows (756 f32 flops per point)."""
+    inputs = C * 27 * 8 + F * 21 * 8 + N * 3 * 8 + C * F * N * (2 * 8 + 1)
+    blocks_out = 4 * (tiles * C * 144 + F * 36 + C * F * (72 + 12 + 6 + 1))
+    chain = (60 * n_obs, F64_FLOPS)
+    return {
+        "ba_blocks_kernel": bound(inputs + blocks_out, [chain, (756 * n_obs, F32_FLOPS)]),
+        "ba_cost_kernel": bound(inputs + 4 * C * F, [chain, (4 * n_obs, F32_FLOPS)]),
+    }
+
+
+def corner_bound(B, H, W, sigma, nms, peaks):
+    """Bound of the corner kernel on (B, H, W): 4 B read and 4 B (+1 B of
+    peak) written per pixel; per pixel 2 (2 rg + 1) - 1 flops for each
+    Gaussian pass, 12 for the stencil and response, 4 nms + 2 for the window
+    max and the compare."""
+    rg = int(3 * sigma + 0.5)
+    px = B * H * W
+    per_px = 2 * (2 * (2 * rg + 1) - 1) + 12 + (4 * nms + 2 if peaks else 0)
+    return bound(px * (4 + 4 + (1 if peaks else 0)), [(px * per_px, F32_FLOPS)])
 
 
 def bench_problem(torch, device):
@@ -75,6 +141,12 @@ def bench_problem(torch, device):
         as_t(x0["cam0"]), as_t(x0["poses0"]), as_t(np.nan_to_num(obs_np)),
         as_t(~np.isnan(obs_np).any(-1)), as_t(rig.calib_objpoints),
     )
+
+
+def describe_build(built):
+    ptxas = [ln.strip() for ln in built.log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    return f"{built.path.name} in {built.build_s:.2f} s; " + " | ".join(ptxas)
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -122,6 +194,154 @@ def compare_cost(got, ref):
     return float((a - b).abs().max())
 
 
+def compare_corner(torch, gray, sigma, nms, peaks):
+    """Kernel vs twin on one input: resp within 3e-6 x the SAME-convolution
+    path's largest |response| inside the detector's margin (the tolerance of
+    tests/test_pallas_kernels.py); peak exactly the NMS of the kernel's own
+    response (away from the border, where the window lies in the image) and
+    exactly the twin's. Returns max |resp_kernel - resp_twin|."""
+    import torch.nn.functional as F
+
+    from multicam_calibration_tpu_torch.detection import detector
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    if peaks:
+        resp, peak = cc.corner_response_peaks(gray, sigma, nms)
+        resp_t, peak_t = cc.corner_response_peaks_reference(gray, sigma, nms)
+    else:
+        resp, resp_t = cc.corner_response_fused(gray, sigma), cc.corner_response_fused_reference(gray, sigma)
+    torch.cuda.synchronize()
+    check(bool(resp.isfinite().all()), f"sigma {sigma}: non-finite response")
+    m = int(3 * sigma + 0.5) + nms + 4
+    scale = float(detector.corner_response(gray, sigma, impl="conv").abs().max())
+    inner = (slice(None), slice(m, -m), slice(m, -m))
+    err_in = float((resp - resp_t)[inner].abs().max())
+    check(err_in <= 3e-6 * scale, f"sigma {sigma}: |kernel - twin| {err_in:.3e} > {3e-6 * scale:.3e}")
+    if peaks:
+        own = cc.peaks_of(F.pad(resp, (nms,) * 4, value=float("-inf")), nms)
+        inner_n = (slice(None), slice(nms, -nms), slice(nms, -nms))
+        check(torch.equal(peak[inner_n], own[inner_n]), f"sigma {sigma}: peaks != NMS of own response")
+        check(torch.equal(peak, peak_t), f"sigma {sigma}: peaks != twin's peaks")
+    return float((resp - resp_t).abs().max())
+
+
+def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
+    """Phases 6-9: the detection path; fills the corner kernels' entries of
+    launches / errs / times / bounds."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    # 6. build
+    log("6 build", describe_build(corner_build.result()))
+
+    # 7. kernel vs twin
+    nms = 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = np.load(os.path.join(HERE, "multicam_calibration_tpu_torch", "data", "detect_frames.npz"))
+    frames = d["frames"]
+    board = tuple(int(v) for v in d["board_shape"])
+    clean = np.nonzero(d["kind"] == "clean")[0]
+    reps = -(-BATCH // len(clean))
+    bench_gray = torch.as_tensor(np.concatenate([frames[clean]] * reps)[:BATCH], device=dev)
+    bench_gray = bench_gray.float() / 255.0
+    shapes = {"ragged": torch.rand((3, 130, 131), generator=gen, device=dev),
+              "bench": bench_gray}
+    errs["corner_peaks_kernel"] = errs["corner_response_kernel"] = 0.0
+    for label, g in shapes.items():
+        msg = []
+        for sigma in (1.5, 3.5, 6.0, 9.0):
+            e = compare_corner(torch, g, sigma, nms, True)
+            errs["corner_peaks_kernel"] = max(errs["corner_peaks_kernel"], e)
+            msg.append(f"peaks sigma {sigma} max|err| {e:.3e}")
+        e = compare_corner(torch, g, 1.5, nms, False)
+        errs["corner_response_kernel"] = max(errs["corner_response_kernel"], e)
+        msg.append(f"no-peaks sigma 1.5 max|err| {e:.3e}")
+        log(f"7 parity {label}", f"{tuple(g.shape)}: " + "; ".join(msg))
+    B, H, W = bench_gray.shape
+    timing = {}
+    for sigma in (1.5, 9.0):
+        timing[sigma] = (cuda_ms(torch, lambda: cc.corner_response_peaks(bench_gray, sigma, nms)),
+                         cuda_ms(torch, lambda: cc.corner_response_peaks_reference(bench_gray, sigma, nms), 5))
+    times["corner_peaks_kernel"] = timing[1.5]
+    times["corner_response_kernel"] = (
+        cuda_ms(torch, lambda: cc.corner_response_fused(bench_gray, 1.5)),
+        cuda_ms(torch, lambda: cc.corner_response_fused_reference(bench_gray, 1.5), 5))
+    bounds["corner_peaks_kernel"] = corner_bound(B, H, W, 1.5, nms, True)
+    bounds["corner_response_kernel"] = corner_bound(B, H, W, 1.5, nms, False)
+    b9 = corner_bound(B, H, W, 9.0, nms, True)
+    log("7 timing", f"{(B, H, W)}, ms per call, kernel vs twin (bound): peaks sigma 1.5 "
+        f"{timing[1.5][0]:.4f} vs {timing[1.5][1]:.4f} ({bounds['corner_peaks_kernel'][0]:.4f}, "
+        f"{bounds['corner_peaks_kernel'][1]}); peaks sigma 9 {timing[9.0][0]:.4f} vs "
+        f"{timing[9.0][1]:.4f} ({b9[0]:.4f}, {b9[1]}); no-peaks sigma 1.5 "
+        f"{times['corner_response_kernel'][0]:.4f} vs {times['corner_response_kernel'][1]:.4f} "
+        f"({bounds['corner_response_kernel'][0]:.4f}, {bounds['corner_response_kernel'][1]})")
+    del shapes, bench_gray
+
+    # 8. detection against the JAX package's stored answers
+    def detect(images):
+        before = cc.corner_response_peaks.launches
+        out = mct.detect_chessboard_batch(list(images), board_shape=board, device=dev)
+        return out, cc.corner_response_peaks.launches - before
+
+    got, n_all = detect(frames)
+    acc = np.nonzero(d["accepted"])[0]
+    check(sorted(got) == sorted(int(i) for i in acc),
+          f"accepted frames {sorted(got)} != JAX's {acc.tolist()}")
+    du = ds = 0.0
+    for j, i in enumerate(acc):
+        du = max(du, float(np.abs(got[int(i)][0] - d["uvs"][j]).max()))
+        ds = max(ds, float(np.abs(got[int(i)][1] - d["scores"][j]).max()))
+    check(du <= 0.01, f"corners differ from JAX's by {du:.4f} px")
+    check(ds <= 1e-3, f"anchor scores differ from JAX's by {ds:.2e}")
+    ladder = np.nonzero(d["needs_ladder"])[0]
+    check(len(ladder) > 0, "no stored frame needs the coarse ladder")
+    got_l, n_ladder = detect(frames[ladder])
+    check(sorted(got_l) == list(range(len(ladder))), "coarse-ladder frames not all detected")
+    check(n_ladder > 1, f"coarse-ladder frames launched the kernel {n_ladder} times")
+    log("8 parity", f"{len(frames)} frames ({', '.join(sorted(set(d['kind'].tolist())))}): "
+        f"accepted {len(got)}/{len(frames)} as JAX; max |corner diff| {du:.2e} px, max |score "
+        f"diff| {ds:.2e}; kernel launches {n_all}; the {len(ladder)} coarse-ladder frames "
+        f"alone: {n_ladder} launches")
+
+    # 9. the full-width timed run: the clean frames tiled to batch 128 with
+    # seeded +-2 noise (scripts/bench_detection.py:176-188), fresh per call
+    rng = np.random.default_rng(7)
+    tiled = np.concatenate([frames[clean]] * reps)[:BATCH]
+    gt = np.concatenate([d["gt"][clean]] * reps)[:BATCH]
+    batches = [np.clip(tiled.astype(np.int16) + rng.integers(-2, 3, tiled.shape, dtype=np.int16),
+                       0, 255).astype(np.uint8) for _ in range(TIMED_CALLS + 1)]
+    detect(batches[0])  # warm-up
+    cc.corner_response_peaks.launches = 0
+    cc.corner_response_fused.launches = 0
+    walls, n_launch, n_det, sq = [], [], 0, []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, n = detect(b)
+        walls.append(time.perf_counter() - t0)
+        n_launch.append(n)
+        n_det += len(out)
+        for i, (uvs, _) in out.items():
+            sq.append(((uvs - gt[i]) ** 2).sum(-1))
+    resp = mct.corner_response(torch.as_tensor(batches[0], device=dev).float() / 255.0)
+    torch.cuda.synchronize()
+    check(tuple(resp.shape) == (BATCH,) + frames.shape[1:] and bool(resp.isfinite().all()),
+          "corner_response: bad output")
+    launches["corner_peaks_kernel"] = cc.corner_response_peaks.launches
+    launches["corner_response_kernel"] = cc.corner_response_fused.launches
+    rate = n_det / (BATCH * TIMED_CALLS)
+    rms = float(np.sqrt(np.concatenate(sq).mean())) if sq else float("inf")
+    fps = [BATCH / w for w in walls]
+    check(rate == 1.0, f"detection rate {rate} on clean frames")
+    check(rms < 0.6, f"RMS corner error {rms:.4f} px")
+    check(n_launch == [1] * TIMED_CALLS, f"kernel launches per call {n_launch}")
+    check(launches["corner_response_kernel"] == 1, "corner_response did not launch its kernel")
+    log("9 detection", f"batch {BATCH} x {frames.shape[1]}x{frames.shape[2]}, board {board}: "
+        f"median {statistics.median(fps):.1f} frames/s (runs " + ", ".join(f"{f:.1f}" for f in fps)
+        + f"); detection rate {rate:.3f}; RMS corner error {rms:.4f} px; kernel launches per "
+        f"call {n_launch[0]}; public corner_response: 1 launch")
+
+
 def main():
     import torch
 
@@ -135,6 +355,9 @@ def main():
     from multicam_calibration_tpu_torch.ops import _build, ba_cuda
 
     dev = cuda_device()
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    builds = {name: pool.submit(_build.load_library, name)
+              for name in ("ba_kernels", "corner_kernels")}
 
     # 1. the card
     smi = subprocess.run(
@@ -145,11 +368,8 @@ def main():
     log("1 device", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. build
-    built = _build.load_library("ba_kernels")
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    log("2 build", f"{built.path.name} in {built.build_s:.2f} s; " + " | ".join(ptxas))
+    # 2. build (both sources at once; the corner build is reported in phase 6)
+    log("2 build", describe_build(builds["ba_kernels"].result()))
 
     # 3. kernels vs twins on the card
     cam0, poses0, obs, mask, objp = bench_problem(torch, dev)
@@ -185,6 +405,7 @@ def main():
     }
     log("3 timing", "bench shape, ms per call, wrapper vs twin: " + "; ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items()))
+    bounds = ba_bounds(C, F, N, int(mask.sum()), -(-F // ba_cuda._lib().ba_frames_per_block()))
 
     # 4. a small solve through the kernels against the plain path
     opts = lm_options_from_jax(BENCH_JAX_OPTIONS)
@@ -268,11 +489,14 @@ def main():
         f"n_iters {info_c['n_iters']} nfev {info_c['nfev']} final_cost {final_c:.4f} "
         f"rmse_px {rmse_c:.4f} block_launches {nb_c} cost_launches {nc_c}")
 
+    detect_phases(torch, dev, builds["corner_kernels"], launches, errs, times, bounds)
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("ba_blocks_kernel", "ba_cost_kernel")
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+        for name, (src, replaces) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

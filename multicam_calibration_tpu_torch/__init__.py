@@ -5,12 +5,20 @@ PyTorch for one NVIDIA GPU (Hopper, sm_90a), with the JAX package's Pallas
 TPU kernels replaced by hand-written CUDA kernels (``csrc/``). It imports
 neither JAX nor the JAX package. Ported so far: the Schur-LM
 bundle-adjustment path (``models.lm_core``) with its geometry ops, the
-synthetic rig and the parameter helpers; see ROADMAP.md for the rest.
+synthetic rig and the parameter helpers, and full-resolution chessboard
+detection (``detection.detector``); see ROADMAP.md for the rest.
 """
 
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
-from .detection import generate_chessboard_objpoints
+from .detection import (
+    corner_response,
+    detect_chessboard,
+    detect_chessboard_batch,
+    find_corner_candidates,
+    generate_chessboard_objpoints,
+    refine_corners_subpix,
+)
 from .models.bundle_adjustment import (
     deserialize_params,
     embed_calib_objpoints,
@@ -22,6 +30,11 @@ from .synthetic import make_synthetic_rig
 
 __all__ = list(_ops_all) + [
     "generate_chessboard_objpoints",
+    "corner_response",
+    "detect_chessboard",
+    "detect_chessboard_batch",
+    "find_corner_candidates",
+    "refine_corners_subpix",
     "deserialize_params",
     "embed_calib_objpoints",
     "predict_calib_uvs",

@@ -1,4 +1,22 @@
-"""Calibration-target models (detection itself is not ported yet)."""
+"""Calibration-target models and the chessboard detector."""
 from .board import generate_chessboard_objpoints
+from .detector import (
+    corner_response,
+    detect_chessboard,
+    detect_chessboard_batch,
+    extend_grid,
+    find_corner_candidates,
+    refine_corners_subpix,
+    reorder_chessboard_corners,
+)
 
-__all__ = ["generate_chessboard_objpoints"]
+__all__ = [
+    "generate_chessboard_objpoints",
+    "corner_response",
+    "detect_chessboard",
+    "detect_chessboard_batch",
+    "extend_grid",
+    "find_corner_candidates",
+    "refine_corners_subpix",
+    "reorder_chessboard_corners",
+]

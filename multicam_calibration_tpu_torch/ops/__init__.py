@@ -1,4 +1,5 @@
-"""Geometry ops and the bundle-adjustment CUDA kernels' wrappers."""
+"""Geometry and homography ops; the CUDA kernels' wrappers live in
+``ba_cuda`` and ``corner_cuda``."""
 from .rotation import rodrigues, rodrigues_inv, so3_exp, so3_log, skew
 from .transforms import (
     apply_rigid_transform,
@@ -7,6 +8,7 @@ from .transforms import (
     get_transformation_vector,
     homogeneous_to_euclidean,
 )
+from .homography import apply_homography, fit_homography, inv3x3, warp_perspective
 from .projection import (
     denormalize_points,
     distort_normalized,
@@ -31,4 +33,8 @@ __all__ = [
     "normalize_points",
     "project_points",
     "undistort_normalized",
+    "apply_homography",
+    "fit_homography",
+    "inv3x3",
+    "warp_perspective",
 ]

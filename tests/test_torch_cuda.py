@@ -9,8 +9,12 @@ Kernel vs plain twin on the same device tensors, at the kernel-parity
 tolerances of tests/test_ba_pallas.py: U/V/W atol 2e-5 * max|.|, gradients
 atol 3e-5 * max(1, max|.|), total cost rtol 3e-5, cost fragments rtol 2e-5
 atol 1e-7 (both run an f64 chain and f32 contractions, in other orders).
+The corner kernel rounds every multiply and add as its twin does, in the
+same order, so the two are compared bit for bit; detection through it is
+compared with the CPU run of the same frames.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -19,7 +23,12 @@ import torch
 import multicam_calibration_tpu_torch as mct
 from multicam_calibration_tpu_torch.models import lm_core
 from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
-from multicam_calibration_tpu_torch.ops import ba_cuda
+from multicam_calibration_tpu_torch.ops import ba_cuda, corner_cuda
+
+DETECT_FRAMES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "multicam_calibration_tpu_torch", "data", "detect_frames.npz",
+)
 
 RECIPE = dict(
     jac_dtype="float32", block_dtype="float32", grad_dtype="float32",
@@ -113,3 +122,36 @@ def test_lm_solve_through_kernels_matches_plain(device):
     )
     ck, cp = info_k["final_cost"], info_p["final_cost"]
     assert abs(ck - cp) <= 1e-3 * cp, (ck, cp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [1.5, 3.5, 6.0, 9.0])
+@pytest.mark.parametrize("shape", [(3, 130, 131), (2, 480, 640), (1, 37, 300)])
+def test_corner_kernel_matches_twin(device, shape, sigma):
+    gray = torch.rand(shape, generator=torch.Generator(device=device).manual_seed(1),
+                      device=device)
+    before = (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches)
+    resp, peak = corner_cuda.corner_response_peaks(gray, sigma, 4)
+    resp_f = corner_cuda.corner_response_fused(gray, sigma)
+    assert (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches) \
+        == (before[0] + 1, before[1] + 1)
+    resp_t, peak_t = corner_cuda.corner_response_peaks_reference(gray, sigma, 4)
+    assert peak.dtype == torch.bool and resp.dtype == torch.float32
+    assert torch.equal(resp, resp_t) and torch.equal(peak, peak_t)
+    assert torch.equal(resp_f, resp_t)
+
+
+@pytest.mark.cuda
+def test_detection_on_card_matches_cpu(device):
+    d = np.load(DETECT_FRAMES)
+    pick = [0, 8, 12, 14]  # clean, hard, 12 px and 16 px blur
+    frames = list(d["frames"][pick])
+    board = tuple(int(v) for v in d["board_shape"])
+    before = corner_cuda.corner_response_peaks.launches
+    got = mct.detect_chessboard_batch(frames, board_shape=board, device=device)
+    assert corner_cuda.corner_response_peaks.launches - before >= 2  # stage 1 + the ladder
+    ref = mct.detect_chessboard_batch(frames, board_shape=board, device="cpu")
+    assert sorted(got) == sorted(ref) == list(range(len(pick)))
+    for i in ref:
+        np.testing.assert_allclose(got[i][0], ref[i][0], atol=0.01)
+        np.testing.assert_allclose(got[i][1], ref[i][1], atol=1e-3)
