@@ -16,10 +16,13 @@ each:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``multicam_calibration_tpu_torch/csrc``, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; ptxas must report no spills for
+   ``ba_blocks_kernel``;
 3. each kernel against its plain PyTorch twin on the card, at the bench
    shape and at a ragged shape with zero-pose padded frames and a
-   near-identity camera, with timings of kernel and twin;
+   near-identity camera, with timings of wrapper and twin, and from
+   ``torch.profiler`` the kernels' own device time and the CUDA launches per
+   call (at most 2 per ``ba_chunk_blocks`` call, 1 per ``ba_chunk_cost``);
 4. a small ``lm_solve`` through the kernels against the plain path;
 5. the bench problem through the kernels (quality gate: final cost at or
    below scipy TRF's 12338.04, BASELINE_MEASURED.json), with launch counts
@@ -47,6 +50,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,16 +99,17 @@ def bound(nbytes, ops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ba_bounds(C, F, N, n_obs, tiles):
-    """Bounds of the two BA kernels at one shape. Bytes: the packs
-    (C x 27, F x 21 f64), board points, observations (f64) and mask (u8)
+def ba_bounds(C, F, N, n_obs):
+    """Bounds of the two BA kernels at one shape. Bytes: the parameters
+    (C x 12, F x 6 f64), board points, observations (f64) and mask (u8)
     read once, the f32 outputs written once. Operations, counted for the
     observed points only: the f64 prediction chain, ~60 flops per point
     (rotate and translate twice, project, distort, scale), and for the block
     build the 189 distinct normal-block outputs, each a multiply-add over
-    the point's two residual rows (756 f32 flops per point)."""
-    inputs = C * 27 * 8 + F * 21 * 8 + N * 3 * 8 + C * F * N * (2 * 8 + 1)
-    blocks_out = 4 * (tiles * C * 144 + F * 36 + C * F * (72 + 12 + 6 + 1))
+    the point's two residual rows (756 f32 flops per point). The rotations
+    of C + F parameter vectors are ~100 flops each and left out."""
+    inputs = C * 12 * 8 + F * 6 * 8 + N * 3 * 8 + C * F * N * (2 * 8 + 1)
+    blocks_out = 4 * (C * 144 + F * 36 + C * F * (72 + 12 + 6 + 1))
     chain = (60 * n_obs, F64_FLOPS)
     return {
         "ba_blocks_kernel": bound(inputs + blocks_out, [chain, (756 * n_obs, F32_FLOPS)]),
@@ -147,6 +152,48 @@ def describe_build(built):
     ptxas = [ln.strip() for ln in built.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     return f"{built.path.name} in {built.build_s:.2f} s; " + " | ".join(ptxas)
+
+
+def ptxas_of(log, kernel):
+    """What ptxas reported for ``kernel`` in a build log: registers, stack
+    frame bytes and spill store / load bytes."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            text = []
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                text.append(nxt)
+            text = " ".join(text)
+            regs = re.search(r"Used (\d+) registers", text)
+            sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads", text)
+            if regs and sp:
+                return {"registers": int(regs[1]), "stack_bytes": int(sp[1]),
+                        "spill_stores": int(sp[2]), "spill_loads": int(sp[3])}
+    raise AssertionError(f"no ptxas report for {kernel}:\n{log}")
+
+
+def profile_calls(torch, fn, calls=10):
+    """(CUDA launches per call, device ms per call, {kernel: device us per
+    call}) of fn() over ``calls`` calls under torch.profiler, after a
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(dev) > 0, "torch.profiler recorded no device work")
+    per = {}
+    for e in dev:
+        key = re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
+        per[key] = per.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    return len(dev) / calls, sum(per.values()) / 1e3, per
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -369,7 +416,10 @@ def main():
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # 2. build (both sources at once; the corner build is reported in phase 6)
-    log("2 build", describe_build(builds["ba_kernels"].result()))
+    ba_build = builds["ba_kernels"].result()
+    log("2 build", describe_build(ba_build))
+    ptxas = ptxas_of(ba_build.log, "ba_blocks_kernel")
+    check(ptxas["spill_stores"] == ptxas["spill_loads"] == 0, f"ba_blocks_kernel spills: {ptxas}")
 
     # 3. kernels vs twins on the card
     cam0, poses0, obs, mask, objp = bench_problem(torch, dev)
@@ -405,7 +455,17 @@ def main():
     }
     log("3 timing", "bench shape, ms per call, wrapper vs twin: " + "; ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items()))
-    bounds = ba_bounds(C, F, N, int(mask.sum()), -(-F // ba_cuda._lib().ba_frames_per_block()))
+    prof = {"ba_blocks_kernel": profile_calls(torch, lambda: ba_cuda.ba_chunk_blocks(*bench)),
+            "ba_cost_kernel": profile_calls(torch, lambda: ba_cuda.ba_chunk_cost(*bench))}
+    check(prof["ba_blocks_kernel"][0] <= 2,
+          f"ba_chunk_blocks: {prof['ba_blocks_kernel'][0]} CUDA launches per call")
+    check(prof["ba_cost_kernel"][0] == 1,
+          f"ba_chunk_cost: {prof['ba_cost_kernel'][0]} CUDA launches per call")
+    log("3 profile", "bench shape, torch.profiler over 10 calls: " + "; ".join(
+        f"{k}: {n:g} CUDA launches per call, kernels alone {1e3 * ms:.2f} us per call ("
+        + ", ".join(f"{name} {us:.2f}" for name, us in per.items()) + ")"
+        for k, (n, ms, per) in prof.items()))
+    bounds = ba_bounds(C, F, N, int(mask.sum()))
 
     # 4. a small solve through the kernels against the plain path
     opts = lm_options_from_jax(BENCH_JAX_OPTIONS)

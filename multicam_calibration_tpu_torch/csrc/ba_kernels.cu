@@ -1,67 +1,164 @@
 // Bundle-adjustment kernels for NVIDIA Hopper (sm_90a), plain C ABI.
 //
 // Replaces the two Pallas TPU kernels of multicam_calibration_tpu/ops/ba_pallas.py:
-//   ba_blocks_kernel <- _ba_kernel   (fused linearization + normal-block build)
-//   ba_cost_kernel   <- _cost_kernel (per-damping-try robust cost)
-// Both run the same prediction chain (chain_residual below, the counterpart of
-// ba_pallas.py:_chain_residual); the cost kernel is the block kernel with the
-// Jacobian section left out.
+//   ba_blocks_kernel + ba_reduce_kernel <- _ba_kernel   (fused linearization +
+//                                                         normal-block build)
+//   ba_cost_kernel                      <- _cost_kernel (per-damping-try robust cost)
+// All three take the raw parameters, cam (C, 12) and pose (F, 6) in f64, and
+// compute the rotations in the kernel (rotation_pack below, the formulas of
+// ops/rotation.py); the block and cost kernels run the same
+// prediction chain (chain_residual, the counterpart of
+// ba_pallas.py:_chain_residual).
 //
 // Numerical contract (ba_pallas.py:24-27, lm_core.py:519-527):
-//   - the prediction chain and residual run in native fp64 (Hopper has it; the
-//     TPU kernel's two-float arithmetic existed only because the TPU has none);
+//   - R_c, R_p, the prediction chain and the residual run in native fp64
+//     (Hopper has it; the TPU kernel's two-float arithmetic existed only because
+//     the TPU has none);
+//   - the left Jacobians J_l(r_c), J_l(rho_p) are evaluated in f64 and rounded to
+//     f32, as the Pallas kernel (ba_pallas.py:588, :603) and the twin do;
 //   - Jacobian rows, robust weights, in-frame products and in-tile sums are f32,
 //     computed from the f64 chain values cast to f32 (lm_core's jac/grad/block/
 //     cost_dtype="float32" recipe);
-//   - every output is an f32 fragment; the frame and camera reductions of the
-//     gradient and cost run in f64 outside the kernel.
+//   - every output is f32; the frame and camera reductions of the gradient and
+//     cost run in f64 outside the kernels.
 //
-// Layout: one block per tile of kFramesPerBlock frames, one warp per frame, a
-// loop over cameras inside the block. Each lane owns up to two board points
-// (N <= 64, i.e. N*2 <= 128 rows per frame). The world points of a frame are
-// computed once and reused by every camera, and V (summed over cameras) stays
-// in registers. Within a frame the weighted Jacobian rows go to shared memory
-// and each lane reduces a fixed set of the 189 distinct outputs (W 72, g_cam 12,
-// g_pose 6, upper V 21, upper U 78) in a fixed row order. U is summed over the
-// tile's frames in a fixed warp order and emitted as one partial per
-// (tile, camera); the caller sums the partials. There are no atomics, so every
-// launch gives bit-identical results.
+// Block build, two launches per call:
+//   1. ba_blocks_kernel: grid (frame tiles, cameras), 256 threads a block, a
+//      tile of P = min(256 / N, 8) frames (7 at N = 35). Warp 0 computes the
+//      frames' R_p and J_l on lanes < P and the camera's R_c and J_l on lane 31,
+//      one code path for all, into shared memory. Then every board point of
+//      the tile gets a thread, which builds the point's two weighted rows
+//      (19 columns: 12 A, 6 B, weighted residual, padded to 20) into shared
+//      memory. Then one warp per (camera, frame) pair forms the pair's Gram:
+//      the 189 outputs (U 78, W 72, V 21, g_cam 12, g_pose 6) are the upper
+//      triangle of the 20 x 20 Gram of its 2N rows without r.r, 15 pairs of
+//      4-column blocks, each owned by two lanes (rows [0, N) and [N, 2N)), each
+//      lane a 4 x 4 register tile fed by two float4 loads per row; the halves
+//      are added with one shuffle. W, g_cam, g_pose and cost are final per
+//      (c, f); V goes out per (c, f) and U per (camera, tile) after a sum over
+//      the tile's frames in order.
+//   2. ba_reduce_kernel: V summed over cameras in camera order (one thread per
+//      frame entry), U over tiles (one warp per camera entry: lanes stride over
+//      the tiles, then a fixed shuffle tree), both written as full symmetric
+//      matrices.
+// No float atomics: every launch gives bit-identical results.
 //
 // Masked points never enter the chain: their rows are exact zeros written
 // before any divide. Padded frames carry zero poses, and a near-identity camera
 // then sees |z| ~ 1e-5, where the f32 1/z chain overflows and inf * 0 would
-// poison the normal equations (ba_pallas.py:189-202). chain_residual also
-// takes the z = 1 branch for a masked point or |z| < 1e-12, as the TPU kernel
-// does, so it stays finite for any caller.
+// poison the normal equations (ba_pallas.py:189-202). chain_residual also takes
+// the z = 1 branch for a masked point or |z| < 1e-12, as the TPU kernel does,
+// so it stays finite for any caller.
 //
 // Bounds on the H100: the bench shape (6 cameras x 922 frames x 35 points) is
-// ~387k observation rows at a few hundred flops each plus ~190 70-term dot
-// products per (camera, frame): ~0.1 GFLOP, ~3 MB in and ~2 MB out per launch.
-// That is microseconds of fp64/f32 throughput or HBM bandwidth, so the kernel
-// is bound by launch latency and the serial camera loop, not by flops or
-// bytes. It deliberately uses no wgmma and no TMA.
+// ~150k observed points at ~60 f64 flops of chain and 756 f32 flops of Gram
+// each (~0.12 GFLOP, 1.9 us at 67 TFLOP/s f32), ~3 MB in and ~2 MB out (~1.5
+// us at 3.35 TB/s): bound by operations. What the design does about it:
+//   - parallelism: a warp per (camera, frame) pair for the Gram, 5.5k at the
+//     bench shape, and a thread per board point for the rows, so that no lane
+//     idles through a second round of points; __launch_bounds__ with 3 blocks
+//     of 8 warps per SM;
+//   - the Gram is register-tiled (16 FMAs per two 16-byte shared loads) rather
+//     than one dot product per output (one FMA per two 4-byte loads);
+//   - the parameter packs (so3 exponentials, left Jacobians) are computed in the
+//     kernel, once per block, so the wrapper launches nothing else; the
+//     observation loads are issued before them.
+// What it leaves out: tensor cores (each pair is a 70 x 20 Gram, ~13k FMAs, and
+// TF32 would break the f32 block contract; 3xTF32 is left for later), TMA and
+// cp.async (one pair's observations are 560 B, which coalesced loads cover).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kFramesPerBlock = 4;                  // one warp per frame
-constexpr int kThreads = 32 * kFramesPerBlock;
-constexpr int kPointsPerLane = 2;                   // N <= 64
-constexpr int kCols = 19;                           // 12 A + 6 B + weighted residual
+constexpr int kThreads = 256;                       // block kernel: 8 warps
+constexpr int kWarps = kThreads / 32;               // at most one frame per warp
+constexpr int kMinBlocksPerSM = 3;                  // <= 85 registers a thread
+constexpr int kCostFrames = 4;                      // cost kernel: one warp per frame
+constexpr int kCostThreads = 32 * kCostFrames;
+constexpr int kPointsPerLane = 2;                   // cost kernel: N <= 64
+constexpr int kRowStride = 20;                      // 12 A + 6 B + weighted residual + 0
 constexpr int kUpperU = 78;                         // 12 * 13 / 2
 constexpr int kUpperV = 21;                         // 6 * 7 / 2
-constexpr int kOutW = 0, kOutGcam = 72, kOutGpose = 84, kOutV = 90, kOutU = 111;
-constexpr int kOutputs = kOutU + kUpperU;           // 189
-constexpr int kSlots = (kOutputs + 31) / 32;        // outputs per lane
+constexpr int kPairs = 15;                          // upper pairs of 5 column blocks
+constexpr int kReduceThreads = 256;
+constexpr int kCamPack = 18;                        // fx fy cx cy k1 k2 | t_c | R_c
+// A frame's outputs other than U, staged in its rows' shared memory once its
+// Gram is done: W (72) | g_cam (12) | g_pose (6) | upper V (21).
+constexpr int kStageGcam = 72, kStageGpose = 84, kStageV = 90, kStaged = 111;
 
-// Camera pack (C, 27) f64: fx fy cx cy k1 k2 | t_c (3) | R_c row-major (9) |
-// J_l(r_c) row-major (9). Pose pack (F, 21) f64: R_p row-major (9) | t_p (3) |
-// J_l(r_p) row-major (9). The cost kernel reads the first 18 / 12 entries of
-// packs with strides 18 / 12.
-constexpr int kCamJacStride = 27, kPoseJacStride = 21;
-constexpr int kCamChainStride = 18, kPoseChainStride = 12;
+// (row, col) of each entry of the row-major upper triangle of a 12 x 12 / 6 x 6
+// matrix, and the (row block, column block) of each 4-column Gram tile.
+__constant__ uint8_t kUpper12[kUpperU][2] = {
+    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {0, 6}, {0, 7}, {0, 8}, {0, 9},
+    {0, 10}, {0, 11}, {1, 1}, {1, 2}, {1, 3}, {1, 4}, {1, 5}, {1, 6}, {1, 7}, {1, 8},
+    {1, 9}, {1, 10}, {1, 11}, {2, 2}, {2, 3}, {2, 4}, {2, 5}, {2, 6}, {2, 7}, {2, 8},
+    {2, 9}, {2, 10}, {2, 11}, {3, 3}, {3, 4}, {3, 5}, {3, 6}, {3, 7}, {3, 8}, {3, 9},
+    {3, 10}, {3, 11}, {4, 4}, {4, 5}, {4, 6}, {4, 7}, {4, 8}, {4, 9}, {4, 10}, {4, 11},
+    {5, 5}, {5, 6}, {5, 7}, {5, 8}, {5, 9}, {5, 10}, {5, 11}, {6, 6}, {6, 7}, {6, 8},
+    {6, 9}, {6, 10}, {6, 11}, {7, 7}, {7, 8}, {7, 9}, {7, 10}, {7, 11}, {8, 8}, {8, 9},
+    {8, 10}, {8, 11}, {9, 9}, {9, 10}, {9, 11}, {10, 10}, {10, 11}, {11, 11}};
+__constant__ uint8_t kUpper6[kUpperV][2] = {
+    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 1}, {1, 2}, {1, 3}, {1, 4}, {1, 5},
+    {2, 2}, {2, 3}, {2, 4}, {2, 5}, {3, 3}, {3, 4}, {3, 5}, {4, 4}, {4, 5}, {5, 5}};
+__constant__ uint8_t kBlockPair[kPairs][2] = {
+    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {1, 1}, {1, 2}, {1, 3},
+    {1, 4}, {2, 2}, {2, 3}, {2, 4}, {3, 3}, {3, 4}, {4, 4}};
+
+// Shared floats of one frame in the block kernel: its 2N rows, and room for the
+// kStaged outputs when N < 3.
+__host__ __device__ __forceinline__ int frame_smem_floats(int N) {
+  return (2 * N > 6 ? 2 * N : 6) * kRowStride;
+}
+
+// Index of (a, b), a <= b, in the row-major upper triangle of an n x n matrix.
+__device__ __forceinline__ int upper_index(int a, int b, int n) {
+  return a * n - a * (a - 1) / 2 + (b - a);
+}
+
+// I + p K + q K @ K, K = skew(r), row-major: the shape of both so3_exp and the
+// left Jacobian (ops/rotation.py). K @ K is the matrix product, as the twin's.
+__device__ __forceinline__ void i_plus_skew_poly(const double r[3], double p, double q,
+                                                 double out[9]) {
+  const double K[9] = {0.0, -r[2], r[1], r[2], 0.0, -r[0], -r[1], r[0], 0.0};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const double kk = K[3 * i] * K[j] + K[3 * i + 1] * K[3 + j] + K[3 * i + 2] * K[6 + j];
+      out[3 * i + j] = (i == j ? 1.0 : 0.0) + p * K[3 * i + j] + q * kk;
+    }
+  }
+}
+
+// R = so3_exp(r) in f64 and, if jl is given, J_l(r) evaluated in f64 and
+// rounded to f32 (ops/rotation.py: R = I + a K + b K^2, J_l = I + b K + c K^2,
+// a = sin t / t, b = (1 - cos t) / t^2, c = (t - sin t) / t^3, with the series
+// below theta^2 = 1e-8). One sincos serves both.
+__device__ __forceinline__ void rotation_pack(const double r[3], double R[9], float* jl) {
+  const double t2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
+  double a, b, c;
+  if (t2 < 1e-8) {
+    a = 1.0 - t2 / 6.0;
+    b = 0.5 - t2 / 24.0;
+    c = 1.0 / 6.0 - t2 / 120.0;
+  } else {
+    const double t = sqrt(t2);
+    double sn, cs;
+    sincos(t, &sn, &cs);
+    a = sn / t;
+    b = (1.0 - cs) / t2;
+    c = (t - sn) / (t2 * t);
+  }
+  i_plus_skew_poly(r, a, b, R);
+  if (jl != nullptr) {
+    double J[9];
+    i_plus_skew_poly(r, b, c, J);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) jl[k] = (float)J[k];
+  }
+}
 
 struct Chain {
   double q[3];          // camera-frame point R_c p_w + t_c
@@ -107,261 +204,346 @@ __device__ __forceinline__ void robust_rho_w(float r, float fs2, int linear,
   }
 }
 
+// Camera pack (kCamPack f64: fx fy cx cy k1 k2 | t_c | R_c) of cam (12,) = fx fy
+// cx cy k1 k2 rx ry rz tx ty tz.
+__device__ __forceinline__ void camera_pack(const double* cam, double* p) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) p[i] = cam[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p[6 + i] = cam[9 + i];
+  const double r[3] = {cam[6], cam[7], cam[8]};
+  rotation_pack(r, p + 9, nullptr);
+}
+
+// Pose pack (12 f64: R_p row-major | t_p) of pose (6,) = rho t_p.
+__device__ __forceinline__ void pose_pack(const double* pose, double* p) {
+  const double r[3] = {pose[0], pose[1], pose[2]};
+  rotation_pack(r, p, nullptr);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p[9 + i] = pose[3 + i];
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// World point and R_p b of board point n for one frame (pose pack P).
-__device__ __forceinline__ void world_point(const double* P, const double* objp, int n,
+// World point p_w = R_p b + t_p and R_p b of board point b (pose pack P).
+__device__ __forceinline__ void world_point(const double* P, const double b[3],
                                             double pw[3], double rb[3]) {
-  const double b0 = objp[3 * n], b1 = objp[3 * n + 1], b2 = objp[3 * n + 2];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    rb[i] = P[3 * i] * b0 + P[3 * i + 1] * b1 + P[3 * i + 2] * b2;
+    rb[i] = P[3 * i] * b[0] + P[3 * i + 1] * b[1] + P[3 * i + 2] * b[2];
     pw[i] = rb[i] + P[9 + i];
   }
 }
 
-// (row, col) of the t-th entry of the row-major upper triangle of an n x n matrix.
-__device__ __forceinline__ void upper_pair(int t, int n, int& a, int& b) {
-  a = 0;
-  while (t >= n - a) {
-    t -= n - a;
-    ++a;
-  }
-  b = a + t;
-}
-
-// The two shared-memory columns whose row-wise dot product is output o.
-__device__ __forceinline__ void output_columns(int o, int& a, int& b) {
-  if (o < kOutGcam) {
-    a = o / 6;
-    b = 12 + o % 6;
-  } else if (o < kOutGpose) {
-    a = o - kOutGcam;
-    b = 18;
-  } else if (o < kOutV) {
-    a = 12 + o - kOutGpose;
-    b = 18;
-  } else if (o < kOutU) {
-    upper_pair(o - kOutV, 6, a, b);
-    a += 12;
-    b += 12;
-  } else {
-    upper_pair(o - kOutU, 12, a, b);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ba_blocks_kernel(const double* __restrict__ cam, const double* __restrict__ pose,
-                 const double* __restrict__ objp, const double* __restrict__ obs,
-                 const uint8_t* __restrict__ msk, int C, int F, int N, float fs2,
-                 int linear, float* __restrict__ u_part, float* __restrict__ v_out,
-                 float* __restrict__ w_out, float* __restrict__ gcam_out,
-                 float* __restrict__ gpose_out, float* __restrict__ cost_out) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int rs = 2 * N + 1;  // odd row stride: distinct columns hit distinct banks
-  float* rows = smem + warp * kCols * rs;                  // [kCols][rs]
-  float* ushare = smem + kFramesPerBlock * kCols * rs;      // [kFramesPerBlock][78]
-  const int f = blockIdx.x * kFramesPerBlock + warp;
-  const bool frame_ok = f < F;                              // warp-uniform
-
-  // Per-frame geometry, once for all cameras.
-  double pw[kPointsPerLane][3];
-  float rb[kPointsPerLane][3];
-  float jlp[9];
-  if (frame_ok) {
-    const double* P = pose + (size_t)f * kPoseJacStride;
+// The two weighted rows (u, v) of one observed point, written to row and
+// row + kRowStride; returns the point's robust cost. f32 Jacobian rows from the
+// f64 chain (lm_core._analytic_pred_and_jacs).
+__device__ __forceinline__ float point_rows(const double* cp, const float* jlc,
+                                            const double* P, const float* jlp,
+                                            const double b[3], double ou, double ov,
+                                            float fs2, int linear, float* row) {
+  double pw[3], rbd[3];
+  world_point(P, b, pw, rbd);
+  Chain ch;
+  chain_residual(cp, pw, ou, ov, true, ch);
+  const float fx = (float)cp[0], fy = (float)cp[1];
+  const float k1 = (float)cp[4], k2 = (float)cp[5];
+  const float x = (float)ch.x, y = (float)ch.y, r2 = (float)ch.r2;
+  const float s = (float)ch.s, iz = 1.0f / (float)ch.z;
+  const float sp = k1 + 2.0f * k2 * r2;
+  const float d11 = s + 2.0f * x * x * sp;
+  const float d12 = 2.0f * x * y * sp;
+  const float d22 = s + 2.0f * y * y * sp;
+  const float fxz = fx * iz, fyz = fy * iz;
+  const float M[2][3] = {{d11 * fxz, d12 * fxz, -(d11 * x + d12 * y) * fxz},
+                         {d12 * fyz, d22 * fyz, -(d12 * x + d22 * y) * fyz}};
+  // R_c p_w = q - t_c, both cast to f32 first (the twin's w_cam)
+  const float wc[3] = {(float)ch.q[0] - (float)cp[6], (float)ch.q[1] - (float)cp[7],
+                       (float)ch.q[2] - (float)cp[8]};
+  const float rb[3] = {(float)rbd[0], (float)rbd[1], (float)rbd[2]};
+  const float xd = (float)ch.xd, yd = (float)ch.yd;
+  const float r[2] = {(float)ch.ru, (float)ch.rv};
+  float cost = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPointsPerLane; ++j) {
-      const int n = lane + 32 * j;
-      double rbd[3] = {0.0, 0.0, 0.0};
-      pw[j][0] = pw[j][1] = pw[j][2] = 0.0;
-      if (n < N) world_point(P, objp, n, pw[j], rbd);
+  for (int k = 0; k < 2; ++k) {
+    float rho, w;
+    robust_rho_w(r[k], fs2, linear, rho, w);
+    cost += rho;
+    const float* m = M[k];
+    // d pred / d rotation of the camera: cross(R_c p_w, m) . J_l(r_c)
+    const float cr[3] = {wc[1] * m[2] - wc[2] * m[1], wc[2] * m[0] - wc[0] * m[2],
+                         wc[0] * m[1] - wc[1] * m[0]};
+    // d pred / d t_p: m . R_c ; d pred / d rho_p: cross(R_p b, m R_c) . J_l(rho_p)
+    float mc[3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) rb[j][i] = (float)rbd[i];
+    for (int i = 0; i < 3; ++i) {
+      mc[i] = m[0] * (float)cp[9 + i] + m[1] * (float)cp[12 + i] + m[2] * (float)cp[15 + i];
+    }
+    const float crb[3] = {rb[1] * mc[2] - rb[2] * mc[1], rb[2] * mc[0] - rb[0] * mc[2],
+                          rb[0] * mc[1] - rb[1] * mc[0]};
+    const float f_k = k == 0 ? fx : fy;
+    const float xy_k = k == 0 ? x : y;
+    float a[kRowStride];
+    a[0] = k == 0 ? xd : 0.0f;           // d/dfx
+    a[1] = k == 0 ? 0.0f : yd;           // d/dfy
+    a[2] = k == 0 ? 1.0f : 0.0f;         // d/dcx
+    a[3] = k == 0 ? 0.0f : 1.0f;         // d/dcy
+    a[4] = f_k * xy_k * r2;              // d/dk1
+    a[5] = f_k * xy_k * r2 * r2;         // d/dk2
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      a[6 + i] = cr[0] * jlc[i] + cr[1] * jlc[3 + i] + cr[2] * jlc[6 + i];
+      a[9 + i] = m[i];                                                    // d/dt_c
+      a[12 + i] = crb[0] * jlp[i] + crb[1] * jlp[3 + i] + crb[2] * jlp[6 + i];
+      a[15 + i] = mc[i];
     }
 #pragma unroll
-    for (int k = 0; k < 9; ++k) jlp[k] = (float)P[12 + k];
-  }
-
-  int col_a[kSlots], col_b[kSlots];
-  float vacc[kSlots];
+    for (int i = 0; i < 18; ++i) a[i] *= w;
+    a[18] = r[k] * w;
+    a[19] = 0.0f;
+    float4* dst = reinterpret_cast<float4*>(row + k * kRowStride);
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int o = lane + 32 * s;
-    col_a[s] = col_b[s] = 0;
-    if (o < kOutputs) output_columns(o, col_a[s], col_b[s]);
-    vacc[s] = 0.0f;
+    for (int i = 0; i < kRowStride / 4; ++i) {
+      dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    }
+  }
+  return cost;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+ba_blocks_kernel(const double* __restrict__ cam, const double* __restrict__ pose,
+                 const double* __restrict__ objp, const double* __restrict__ obs,
+                 const uint8_t* __restrict__ msk, int C, int F, int N, int P, float fs2,
+                 int linear, float* __restrict__ u_part, float* __restrict__ v_part,
+                 float* __restrict__ w_out, float* __restrict__ gcam_out,
+                 float* __restrict__ gpose_out, float* __restrict__ cost_out) {
+  extern __shared__ float4 rows_smem[];                // [P][frame_floats]
+  __shared__ double s_cam[kCamPack];                   // the camera's pack, J_l(r_c)
+  __shared__ float s_jlc[9];
+  __shared__ double s_pose[kWarps][12];                // each frame's pack, J_l(rho_p)
+  __shared__ float s_jlp[kWarps][9];
+  __shared__ float s_rho[kThreads];                    // each point's robust cost
+  __shared__ float s_u[kWarps][kUpperU];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int c = blockIdx.y;
+  const int tiles = gridDim.x;
+  const int f0 = blockIdx.x * P;
+  float* rows = reinterpret_cast<float*>(rows_smem);
+  const int frame_floats = frame_smem_floats(N);
+
+  // This thread's board point: frame f0 + t / N, point t % N. The loads are
+  // issued before the packs so that their latency overlaps the rotations.
+  const int fl = t / N, n = t - fl * N;
+  const bool point_ok = fl < P && f0 + fl < F;
+  const size_t o = ((size_t)c * F + f0 + fl) * N + n;
+  bool live = false;
+  double ou = 0.0, ov = 0.0, b[3] = {0.0, 0.0, 0.0};
+  if (point_ok) {
+    live = msk[o] != 0;
+    ou = obs[2 * o];
+    ov = obs[2 * o + 1];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) b[i] = objp[3 * n + i];
   }
 
-  for (int c = 0; c < C; ++c) {
-    const double* cp = cam + (size_t)c * kCamJacStride;
+  // --- packs: warp 0 computes the frames' rotations on lanes < P and the
+  // camera's on lane 31, one code path for all; warps 1 and 2 copy the scalars
+  const double* cam_c = cam + (size_t)c * 12;
+  if (warp == 0) {
+    const bool cam_lane = lane == 31;
+    if (cam_lane || (lane < P && f0 + lane < F)) {
+      const double* rv = cam_lane ? cam_c + 6 : pose + (size_t)(f0 + lane) * 6;
+      const double r[3] = {rv[0], rv[1], rv[2]};
+      rotation_pack(r, cam_lane ? s_cam + 9 : s_pose[lane], cam_lane ? s_jlc : s_jlp[lane]);
+    }
+  } else if (warp == 1) {
+    if (lane < 6) s_cam[lane] = cam_c[lane];                // fx fy cx cy k1 k2
+    else if (lane < 9) s_cam[lane] = cam_c[lane + 3];       // t_c
+  } else if (warp == 2 && lane < 3 * P) {
+    const int k = lane / 3, i = lane - 3 * k;
+    if (f0 + k < F) s_pose[k][9 + i] = pose[(size_t)(f0 + k) * 6 + 3 + i];   // t_p
+  }
+  __syncthreads();
+
+  // --- weighted rows, two per board point, every point of the tile at once
+  if (point_ok) {
+    float* row = rows + (size_t)fl * frame_floats + 2 * n * kRowStride;
+    float rho = 0.0f;
+    if (live) {
+      rho = point_rows(s_cam, s_jlc, s_pose[fl], s_jlp[fl], b, ou, ov, fs2, linear, row);
+    } else {
+      float4* dst = reinterpret_cast<float4*>(row);
+#pragma unroll
+      for (int i = 0; i < 2 * kRowStride / 4; ++i) dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    s_rho[t] = rho;
+  }
+  __syncthreads();
+
+  // --- the Gram of frame f0 + warp: lanes 2p and 2p+1 own column blocks
+  // kBlockPair[p], rows [0, N) and [N, 2N) respectively
+  if (warp < P) {
+    const int f = f0 + warp;
+    const bool frame_ok = f < F;                            // warp-uniform
     const size_t cf = (size_t)c * F + f;
-    float cost_lane = 0.0f;
-    if (frame_ok) {
-      float Rc[9], Jlc[9];
+    float* frows = rows + (size_t)warp * frame_floats;
+    const int pair = lane >> 1, half = lane & 1;
+    float acc[4][4];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        Rc[k] = (float)cp[9 + k];
-        Jlc[k] = (float)cp[18 + k];
-      }
-      const float fx = (float)cp[0], fy = (float)cp[1];
-      const float k1 = (float)cp[4], k2 = (float)cp[5];
-      const float tc[3] = {(float)cp[6], (float)cp[7], (float)cp[8]};
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < kPointsPerLane; ++j) {
-        const int n = lane + 32 * j;
-        if (n >= N) continue;
-        const size_t o = cf * N + n;
-        const bool live = msk[o] != 0;
-        float col[2][kCols];
-        if (live) {
-          Chain ch;
-          chain_residual(cp, pw[j], obs[2 * o], obs[2 * o + 1], live, ch);
-          // --- f32 Jacobian rows from the f64 chain (lm_core._analytic_pred_and_jacs)
-          const float x = (float)ch.x, y = (float)ch.y, r2 = (float)ch.r2;
-          const float s = (float)ch.s, iz = 1.0f / (float)ch.z;
-          const float sp = k1 + 2.0f * k2 * r2;
-          const float d11 = s + 2.0f * x * x * sp;
-          const float d12 = 2.0f * x * y * sp;
-          const float d22 = s + 2.0f * y * y * sp;
-          const float fxz = fx * iz, fyz = fy * iz;
-          const float M[2][3] = {
-              {d11 * fxz, d12 * fxz, -(d11 * x + d12 * y) * fxz},
-              {d12 * fyz, d22 * fyz, -(d12 * x + d22 * y) * fyz}};
-          const float wc[3] = {(float)ch.q[0] - tc[0], (float)ch.q[1] - tc[1],
-                               (float)ch.q[2] - tc[2]};
-          const float xd = (float)ch.xd, yd = (float)ch.yd;
-          const float r[2] = {(float)ch.ru, (float)ch.rv};
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    }
+    int bi = 0, bj = 0;
+    if (pair < kPairs) {
+      bi = kBlockPair[pair][0];
+      bj = kBlockPair[pair][1];
+    }
+    if (frame_ok && pair < kPairs) {
+      const float* pa = frows + (size_t)half * N * kRowStride + 4 * bi;
+      const float* pb = frows + (size_t)half * N * kRowStride + 4 * bj;
+      for (int r = 0; r < N; ++r) {
+        const float4 xa = *reinterpret_cast<const float4*>(pa + r * kRowStride);
+        const float4 xb = *reinterpret_cast<const float4*>(pb + r * kRowStride);
+        const float va[4] = {xa.x, xa.y, xa.z, xa.w};
+        const float vb[4] = {xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            float rho, w;
-            robust_rho_w(r[k], fs2, linear, rho, w);
-            cost_lane += rho;
-            const float* m = M[k];
-            // d pred / d rotation of the camera: cross(R_c p_w, m) . J_l(r_c)
-            const float cr[3] = {wc[1] * m[2] - wc[2] * m[1], wc[2] * m[0] - wc[0] * m[2],
-                                 wc[0] * m[1] - wc[1] * m[0]};
-            // d pred / d t_p: m . R_c ; d pred / d rho_p: cross(R_p b, m R_c) . J_l(rho_p)
-            float mc[3];
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int i = 0; i < 3; ++i) mc[i] = m[0] * Rc[i] + m[1] * Rc[3 + i] + m[2] * Rc[6 + i];
-            const float* b = rb[j];
-            const float crb[3] = {b[1] * mc[2] - b[2] * mc[1], b[2] * mc[0] - b[0] * mc[2],
-                                  b[0] * mc[1] - b[1] * mc[0]};
-            float* a = col[k];
-            const float f_k = k == 0 ? fx : fy;
-            const float xy_k = k == 0 ? x : y;
-            a[0] = k == 0 ? xd : 0.0f;           // d/dfx
-            a[1] = k == 0 ? 0.0f : yd;           // d/dfy
-            a[2] = k == 0 ? 1.0f : 0.0f;         // d/dcx
-            a[3] = k == 0 ? 0.0f : 1.0f;         // d/dcy
-            a[4] = f_k * xy_k * r2;              // d/dk1
-            a[5] = f_k * xy_k * r2 * r2;         // d/dk2
-#pragma unroll
-            for (int i = 0; i < 3; ++i) {
-              a[6 + i] = cr[0] * Jlc[i] + cr[1] * Jlc[3 + i] + cr[2] * Jlc[6 + i];
-              a[9 + i] = m[i];                                                    // d/dt_c
-              a[12 + i] = crb[0] * jlp[i] + crb[1] * jlp[3 + i] + crb[2] * jlp[6 + i];
-              a[15 + i] = mc[i];
-            }
-#pragma unroll
-            for (int i = 0; i < 18; ++i) a[i] *= w;
-            a[18] = r[k] * w;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < kCols; ++i) col[0][i] = col[1][i] = 0.0f;
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(va[i], vb[j], acc[i][j]);
         }
+      }
+    }
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) {
-          rows[i * rs + 2 * n] = col[0][i];
-          rows[i * rs + 2 * n + 1] = col[1][i];
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 1);
+    }
+
+    // outputs: half 0 takes tile rows 0-1, half 1 rows 2-3. U goes to the
+    // tile's shared sum (zeros for frames past F); the rest is staged in the
+    // frame's rows, now read, and written out below in coalesced runs.
+    __syncwarp();
+    if (pair < kPairs) {
+      float* us = s_u[warp];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if ((i >> 1) != half) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int a = 4 * bi + i, bc = 4 * bj + j;
+          if (a > bc || bc == 19 || a == 18) continue;   // lower half, pad column, r.r
+          const float v = acc[i][j];
+          if (bc < 12) us[upper_index(a, bc, 12)] = v;
+          else if (a < 12) frows[bc < 18 ? a * 6 + (bc - 12) : kStageGcam + a] = v;
+          else if (bc < 18) frows[kStageV + upper_index(a - 12, bc - 12, 6)] = v;
+          else frows[kStageGpose + (a - 12)] = v;
         }
       }
     }
     __syncwarp();
-
-    // --- contractions: each lane reduces its own outputs over the frame's rows
-    const int nrows = 2 * N;
+    if (frame_ok) {
+      for (int k = lane; k < kStageGcam; k += 32) w_out[cf * 72 + k] = frows[k];
+      if (lane < 12) gcam_out[cf * 12 + lane] = frows[kStageGcam + lane];
+      if (lane < 6) gpose_out[cf * 6 + lane] = frows[kStageGpose + lane];
+      if (lane < kUpperV) v_part[cf * kUpperV + lane] = frows[kStageV + lane];
+    }
+    // cost: lane l adds points l and l + 32 of the frame, then the shuffle tree
+    float cost_lane = 0.0f;
+    if (frame_ok) {
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int o = lane + 32 * s;
-      if (o >= kOutputs) continue;
-      float acc = 0.0f;
-      if (frame_ok) {
-        const float* ra = rows + col_a[s] * rs;
-        const float* rb_ = rows + col_b[s] * rs;
-        for (int r = 0; r < nrows; ++r) acc += ra[r] * rb_[r];
-      }
-      if (o >= kOutU) {
-        ushare[warp * kUpperU + (o - kOutU)] = acc;  // 0 for frames past F
-      } else if (o >= kOutV) {
-        vacc[s] += acc;
-      } else if (frame_ok) {
-        if (o < kOutGcam) w_out[cf * 72 + o] = acc;
-        else if (o < kOutGpose) gcam_out[cf * 12 + (o - kOutGcam)] = acc;
-        else gpose_out[cf * 6 + (o - kOutGpose)] = acc;
+      for (int j = 0; j < 2; ++j) {
+        const int m = lane + 32 * j;
+        if (m < N) cost_lane += s_rho[warp * N + m];
       }
     }
     const float cost = warp_sum(cost_lane);
     if (frame_ok && lane == 0) cost_out[cf] = cost;
-    __syncthreads();
-
-    // --- U: this tile's sum over its frames, in a fixed warp order
-    for (int t = threadIdx.x; t < kUpperU; t += kThreads) {
-      float u = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kFramesPerBlock; ++w) u += ushare[w * kUpperU + t];
-      int a, b;
-      upper_pair(t, 12, a, b);
-      float* U = u_part + ((size_t)blockIdx.x * C + c) * 144;
-      U[a * 12 + b] = u;
-      U[b * 12 + a] = u;
-    }
-    __syncthreads();  // rows and ushare are rewritten for the next camera
   }
+  __syncthreads();
 
-  if (frame_ok) {
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int o = lane + 32 * s;
-      if (o < kOutV || o >= kOutU) continue;
-      int a, b;
-      upper_pair(o - kOutV, 6, a, b);
-      v_out[(size_t)f * 36 + a * 6 + b] = vacc[s];
-      v_out[(size_t)f * 36 + b * 6 + a] = vacc[s];
-    }
+  // --- U of this (camera, tile): the sum over the tile's frames in order,
+  // stored (C, 78, tiles) so that the reduce kernel reads it contiguously
+  if (t < kUpperU) {
+    float u = 0.0f;
+    for (int w = 0; w < P; ++w) u += s_u[w][t];
+    u_part[((size_t)c * kUpperU + t) * tiles + blockIdx.x] = u;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// V (F, 6, 6) = sum over cameras of v_part (C, F, 21), in camera order; U (C,
+// 12, 12) = sum over tiles of u_part (C, 78, tiles): lane l sums tiles l, l+32,
+// ... in order, then a fixed xor-shuffle tree. Blocks [0, v_blocks) do V.
+__global__ void __launch_bounds__(kReduceThreads)
+ba_reduce_kernel(const float* __restrict__ u_part, const float* __restrict__ v_part,
+                 int C, int F, int tiles, int v_blocks, float* __restrict__ u_out,
+                 float* __restrict__ v_out) {
+  if ((int)blockIdx.x < v_blocks) {
+    const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+    if (i >= F * kUpperV) return;
+    const int f = i / kUpperV, t = i - f * kUpperV;
+    float v = 0.0f;
+    for (int c = 0; c < C; ++c) v += v_part[((size_t)c * F + f) * kUpperV + t];
+    const int a = kUpper6[t][0], b = kUpper6[t][1];
+    v_out[(size_t)f * 36 + a * 6 + b] = v;
+    v_out[(size_t)f * 36 + b * 6 + a] = v;
+    return;
+  }
+  const int w = ((blockIdx.x - v_blocks) * kReduceThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= C * kUpperU) return;                            // warp-uniform
+  const float* src = u_part + (size_t)w * tiles;
+  float u = 0.0f;
+  for (int k = lane; k < tiles; k += 32) u += src[k];
+  u = warp_sum(u);
+  if (lane == 0) {
+    const int c = w / kUpperU, t = w - c * kUpperU;
+    const int a = kUpper12[t][0], b = kUpper12[t][1];
+    u_out[(size_t)c * 144 + a * 12 + b] = u;
+    u_out[(size_t)c * 144 + b * 12 + a] = u;
+  }
+}
+
+// Per-try cost: one block per tile of kCostFrames frames, one warp per
+// frame, a loop over cameras. The block computes every camera's pack into
+// shared memory ([C][kCamPack] f64), each warp its frame's pose pack.
+__global__ void __launch_bounds__(kCostThreads)
 ba_cost_kernel(const double* __restrict__ cam, const double* __restrict__ pose,
                const double* __restrict__ objp, const double* __restrict__ obs,
                const uint8_t* __restrict__ msk, int C, int F, int N, float fs2,
                int linear, float* __restrict__ cost_out) {
+  extern __shared__ double s_cams[];                       // [C][kCamPack]
+  __shared__ double s_pose[kCostFrames][12];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int f = blockIdx.x * kFramesPerBlock + warp;
-  if (f >= F) return;  // warp-uniform: no barrier below spans warps
+  const int f = blockIdx.x * kCostFrames + warp;
+  for (int c = threadIdx.x; c < C; c += kCostThreads) {
+    camera_pack(cam + (size_t)c * 12, s_cams + (size_t)c * kCamPack);
+  }
+  if (f < F && lane == 0) pose_pack(pose + (size_t)f * 6, s_pose[warp]);
+  __syncthreads();
+  if (f >= F) return;  // warp-uniform: no barrier below
 
   double pw[kPointsPerLane][3];
-  const double* P = pose + (size_t)f * kPoseChainStride;
 #pragma unroll
   for (int j = 0; j < kPointsPerLane; ++j) {
     const int n = lane + 32 * j;
-    double rbd[3];
     pw[j][0] = pw[j][1] = pw[j][2] = 0.0;
-    if (n < N) world_point(P, objp, n, pw[j], rbd);
+    if (n < N) {
+      const double b[3] = {objp[3 * n], objp[3 * n + 1], objp[3 * n + 2]};
+      double rbd[3];
+      world_point(s_pose[warp], b, pw[j], rbd);
+    }
   }
 
   for (int c = 0; c < C; ++c) {
-    const double* cp = cam + (size_t)c * kCamChainStride;
+    const double* cp = s_cams + (size_t)c * kCamPack;
     const size_t cf = (size_t)c * F + f;
     float cost_lane = 0.0f;
 #pragma unroll
@@ -383,35 +565,57 @@ ba_cost_kernel(const double* __restrict__ cam, const double* __restrict__ pose,
   }
 }
 
+// Frames per block of the block kernel: every board point of the tile gets a
+// thread, and every frame a warp for its Gram (N <= 64 gives at least 4).
+int frames_per_block(int N) { return kThreads / N < kWarps ? kThreads / N : kWarps; }
+
+int tiles_of(int F, int per_tile) { return (F + per_tile - 1) / per_tile; }
+
+
 }  // namespace
 
 extern "C" {
 
-int ba_frames_per_block() { return kFramesPerBlock; }
-
 const char* ba_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Outputs: u_part (ceil(F / kFramesPerBlock), C, 12, 12), v (F, 36), w (C, F, 72),
-// gcam (C, F, 12), gpose (C, F, 6), cost (C, F); all f32, all written in full.
+// f32 scratch ba_blocks_launch needs for C cameras, F frames and N board points:
+// the per-(c, f) V fragments and the per-(camera, tile) U sums.
+long long ba_blocks_scratch_floats(int C, int F, int N) {
+  return (long long)C * F * kUpperV + (long long)C * kUpperU * tiles_of(F, frames_per_block(N));
+}
+
+// Inputs: cam (C, 12), pose (F, 6), objp (N, 3), obs (C, F, N, 2) f64, msk
+// (C, F, N) u8, all contiguous. Outputs: u (C, 12, 12), v (F, 6, 6), w (C, F, 12,
+// 6), gcam (C, F, 12), gpose (C, F, 6), cost (C, F); all f32, all written in
+// full. scratch: ba_blocks_scratch_floats(C, F, N) f32. Two launches.
 int ba_blocks_launch(const void* cam, const void* pose, const void* objp, const void* obs,
                      const void* msk, int C, int F, int N, double f_scale, int loss_linear,
-                     void* u_part, void* v, void* w, void* gcam, void* gpose, void* cost,
-                     void* stream) {
-  const int tiles = (F + kFramesPerBlock - 1) / kFramesPerBlock;
-  const size_t smem = (size_t)kFramesPerBlock * (kCols * (2 * N + 1) + kUpperU) * sizeof(float);
-  ba_blocks_kernel<<<tiles, kThreads, smem, (cudaStream_t)stream>>>(
+                     void* u, void* v, void* w, void* gcam, void* gpose, void* cost,
+                     void* scratch, void* stream) {
+  const int P = frames_per_block(N);
+  const int tiles = tiles_of(F, P);
+  float* v_part = (float*)scratch;
+  float* u_part = v_part + (size_t)C * F * kUpperV;
+  const size_t smem = (size_t)P * frame_smem_floats(N) * sizeof(float);   // <= 40 KB
+  ba_blocks_kernel<<<dim3(tiles, C), kThreads, smem, (cudaStream_t)stream>>>(
       (const double*)cam, (const double*)pose, (const double*)objp, (const double*)obs,
-      (const uint8_t*)msk, C, F, N, (float)(f_scale * f_scale), loss_linear,
-      (float*)u_part, (float*)v, (float*)w, (float*)gcam, (float*)gpose, (float*)cost);
+      (const uint8_t*)msk, C, F, N, P, (float)(f_scale * f_scale), loss_linear, u_part,
+      v_part, (float*)w, (float*)gcam, (float*)gpose, (float*)cost);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int v_blocks = (F * kUpperV + kReduceThreads - 1) / kReduceThreads;
+  const int u_blocks = (C * kUpperU * 32 + kReduceThreads - 1) / kReduceThreads;
+  ba_reduce_kernel<<<v_blocks + u_blocks, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      u_part, v_part, C, F, tiles, v_blocks, (float*)u, (float*)v);
   return (int)cudaGetLastError();
 }
 
-// Output: cost (C, F) f32.
+// Inputs as ba_blocks_launch. Output: cost (C, F) f32. One launch.
 int ba_cost_launch(const void* cam, const void* pose, const void* objp, const void* obs,
                    const void* msk, int C, int F, int N, double f_scale, int loss_linear,
                    void* cost, void* stream) {
-  const int tiles = (F + kFramesPerBlock - 1) / kFramesPerBlock;
-  ba_cost_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)C * kCamPack * sizeof(double);
+  ba_cost_kernel<<<tiles_of(F, kCostFrames), kCostThreads, smem, (cudaStream_t)stream>>>(
       (const double*)cam, (const double*)pose, (const double*)objp, (const double*)obs,
       (const uint8_t*)msk, C, F, N, (float)(f_scale * f_scale), loss_linear, (float*)cost);
   return (int)cudaGetLastError();

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import cuda_device
 from ..ops.projection import project_points
 from ..ops.transforms import euclidean_to_homogenous, get_transformation_matrix
 
@@ -23,27 +24,37 @@ __all__ = [
 ]
 
 
-def _as_tensor(x, like=None):
+def _as_tensor(x, like=None, device=None):
+    """A tensor as given; else on ``like``'s device in its dtype, or f64 on
+    ``device`` (None: the CUDA device, which raises without one)."""
     if isinstance(x, torch.Tensor):
         return x
     if like is not None:
         return torch.as_tensor(np.asarray(x), dtype=like.dtype, device=like.device)
-    return torch.as_tensor(np.asarray(x, np.float64))
+    if device is None:
+        device = cuda_device()
+    return torch.as_tensor(np.asarray(x, np.float64), device=device)
 
 
-def embed_calib_objpoints(calib_objpoints, calib_poses):
-    """Board canonical points -> world coords per frame: (F, N, 3)."""
-    poses = _as_tensor(calib_poses)
+def embed_calib_objpoints(calib_objpoints, calib_poses, device=None):
+    """Board canonical points -> world coords per frame: (F, N, 3).
+
+    A tensor ``calib_poses`` keeps its device and dtype; numpy poses go to
+    ``device`` in f64 (None: the CUDA device; pass "cpu" for the CPU).
+    """
+    poses = _as_tensor(calib_poses, device=device)
     objp = _as_tensor(calib_objpoints, poses)
     T = get_transformation_matrix(poses)[:, None]
     pts = euclidean_to_homogenous(objp)[None, :, :, None]
     return (T @ pts)[..., :3, 0]
 
 
-def predict_calib_uvs(all_extrinsics, all_intrinsics, calib_objpoints, calib_poses):
+def predict_calib_uvs(all_extrinsics, all_intrinsics, calib_objpoints, calib_poses,
+                      device=None):
     """Forward model for every camera: (C, F, N, 2), in the dtype and on the
-    device of ``calib_poses`` (f64 on the CPU for numpy input)."""
-    pts = embed_calib_objpoints(calib_objpoints, calib_poses)
+    device of ``calib_poses`` when it is a tensor, else f64 on ``device``
+    (None: the CUDA device; pass "cpu" for the CPU)."""
+    pts = embed_calib_objpoints(calib_objpoints, calib_poses, device)
     preds = [
         project_points(
             pts,

@@ -202,6 +202,11 @@ def _route(impl, name, ok, requirement, objpoints) -> bool:
     return ok and on_cuda
 
 
+def _kernel_params(*tensors):
+    """The kernels' f64 contiguous layout; no copy for an f64 data dtype."""
+    return [t.to(torch.float64).contiguous() for t in tensors]
+
+
 def _kernel_loss_ok(opts: LMOptions, objpoints) -> bool:
     return (
         opts.loss in ("soft_l1", "linear")
@@ -268,8 +273,9 @@ def _cost(cam_params, pose_params, obs, mask, objpoints, opts, prepared):
     if _cuda_cost_eval(opts, dtype, objpoints):
         if prepared is None:
             prepared = ba_cuda.ba_prepare_obs(obs, mask)
+        cam64, pose64, objp64 = _kernel_params(cam_params, pose_params, objpoints)
         frags = ba_cuda.ba_chunk_cost(
-            cam_params, pose_params, *prepared, objpoints,
+            cam64, pose64, *prepared, objp64,
             f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
         )
         return frags.to(dtype).sum()
@@ -331,8 +337,9 @@ def _build(cam_params, pose_params, obs, mask, objpoints, opts, cam_free,
     if _cuda_block_build(opts, data_dtype, objpoints):
         if prepared is None:
             prepared = ba_cuda.ba_prepare_obs(obs, mask)
+        cam64, pose64, objp64 = _kernel_params(cam_params, pose_params, objpoints)
         Uf, Vf, Wf, gcam_f, gpose_f, cost_f = ba_cuda.ba_chunk_blocks(
-            cam_params, pose_params, *prepared, objpoints,
+            cam64, pose64, *prepared, objp64,
             f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
         )
         # Same dtype contracts as the plain analytic path: U/V/W
@@ -406,7 +413,12 @@ def _analytic_pred_and_jacs(cam_params, pose_params, objpoints, jac_dtype=None):
     )
 
     # Jacobian, entirely in jac_dtype: intermediates are reused from the
-    # primal by casting.
+    # primal by casting. The left Jacobians are evaluated in the data dtype
+    # and rounded, as the Pallas kernel does (ba_pallas.py:588, :603): an
+    # f32 evaluation loses (1 - cos t) / t^2 to cancellation (all of it
+    # just above the series switch, t = 1e-4; J_l off by ~5e-5 there).
+    Jl_c = so3_left_jacobian(rvec).to(jd)
+    Jl_p = so3_left_jacobian(rho).to(jd)
     if jd != dtype:
         x, y, r2, s, Zs, q, Rb, xd, yd = (
             v.to(jd) for v in (x, y, r2, s, Zs, q, Rb, xd, yd)
@@ -414,11 +426,6 @@ def _analytic_pred_and_jacs(cam_params, pose_params, objpoints, jac_dtype=None):
         fxb, fyb, k1b, k2b = (v.to(jd) for v in (fxb, fyb, k1b, k2b))
         R_c = R_c.to(jd)
         tvec = tvec.to(jd)
-        Jl_c = so3_left_jacobian(rvec.to(jd))
-        Jl_p = so3_left_jacobian(rho.to(jd))
-    else:
-        Jl_c = so3_left_jacobian(rvec)
-        Jl_p = so3_left_jacobian(rho)
 
     sp = k1b + 2.0 * k2b * r2  # s'(r2)
     d11 = s + 2.0 * x * x * sp

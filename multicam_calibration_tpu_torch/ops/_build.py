@@ -36,7 +36,7 @@ class BuiltLibrary:
     lib: ctypes.CDLL
     path: Path
     build_s: float  # 0.0 when an existing build was reused
-    log: str  # nvcc/ptxas output of this build ("" when reused)
+    log: str  # nvcc/ptxas output of the build that made ``path``
 
 
 def _nvcc() -> str:
@@ -60,8 +60,11 @@ def load_library(name: str) -> BuiltLibrary:
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{key}.so"
-    build_s, log = 0.0, ""
-    if not out.exists():
+    log_path = out.with_suffix(".log")
+    build_s = 0.0
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
@@ -74,5 +77,6 @@ def load_library(name: str) -> BuiltLibrary:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return BuiltLibrary(ctypes.CDLL(str(out)), out, build_s, log)

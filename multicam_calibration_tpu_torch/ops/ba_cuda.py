@@ -3,10 +3,16 @@
 Counterpart of ``multicam_calibration_tpu/ops/ba_pallas.py``. The kernels
 live in ``csrc/ba_kernels.cu`` (sm_90a, plain C ABI, loaded with ctypes):
 
-- ``ba_chunk_blocks`` launches ``ba_blocks_kernel``, which replaces the
-  Pallas ``_ba_kernel``: the fused linearization and normal-block build;
+- ``ba_chunk_blocks`` launches ``ba_blocks_kernel`` (one warp per
+  (camera, frame) pair) and ``ba_reduce_kernel`` (V over cameras, U over
+  frame tiles, in a fixed order), which together replace the Pallas
+  ``_ba_kernel``: the fused linearization and normal-block build;
 - ``ba_chunk_cost`` launches ``ba_cost_kernel``, which replaces the Pallas
   ``_cost_kernel``: the per-damping-try robust cost.
+
+The kernels take the raw parameters and compute the rotations and left
+Jacobians themselves, so a wrapper does no tensor arithmetic on the card:
+it checks its inputs, allocates its outputs and launches.
 
 Each wrapper has a plain PyTorch twin in this module
 (``ba_chunk_blocks_reference``, ``ba_chunk_cost_reference``) computing the
@@ -25,10 +31,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from .rotation import so3_exp, so3_left_jacobian
 
 __all__ = [
     "MAX_ROWS",
@@ -115,46 +121,36 @@ def ba_chunk_cost_reference(
 def _lib():
     from ._build import load_library
 
-    lib = load_library("ba_kernels").lib
+    return bind(load_library("ba_kernels").lib)
+
+
+def bind(lib):
+    """Declare the C interface of a loaded ``ba_kernels`` library; returns it."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     head = [ptr] * 5 + [i32, i32, i32, f64, i32]
-    lib.ba_blocks_launch.argtypes = head + [ptr] * 6 + [ptr]
+    lib.ba_blocks_launch.argtypes = head + [ptr] * 7 + [ptr]
     lib.ba_blocks_launch.restype = i32
+    lib.ba_blocks_scratch_floats.argtypes = [i32, i32, i32]
+    lib.ba_blocks_scratch_floats.restype = ctypes.c_longlong
     lib.ba_cost_launch.argtypes = head + [ptr, ptr]
     lib.ba_cost_launch.restype = i32
-    lib.ba_frames_per_block.argtypes = []
-    lib.ba_frames_per_block.restype = i32
     lib.ba_error_string.argtypes = [i32]
     lib.ba_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _packs(cam_params, pose_k, with_jac):
-    """Per-camera and per-frame scalar packs, f64 (layout in ba_kernels.cu).
-
-    The left Jacobians are evaluated in f32 from f32 angles, as the f32
-    recipe's Jacobian section does, then stored exactly in f64.
-    """
-    f64 = torch.float64
-    cam = cam_params.to(f64)
-    pose = pose_k.to(f64)
-    C, F = cam.shape[0], pose.shape[0]
-    cam_cols = [cam[:, :6], cam[:, 9:12], so3_exp(cam[:, 6:9]).reshape(C, 9)]
-    pose_cols = [so3_exp(pose[:, :3]).reshape(F, 9), pose[:, 3:]]
-    if with_jac:
-        jl = lambda r: so3_left_jacobian(r.to(torch.float32)).to(f64)
-        cam_cols.append(jl(cam[:, 6:9]).reshape(C, 9))
-        pose_cols.append(jl(pose[:, :3]).reshape(F, 9))
-    return torch.cat(cam_cols, -1).contiguous(), torch.cat(pose_cols, -1).contiguous()
-
-
 def _check(cam_params, pose_k, obs, msk, objpoints):
-    """Validate the kernels' inputs; returns (C, F, N)."""
+    """Validate the kernels' inputs; returns (C, F, N).
+
+    The kernels read every input in place: parameters and board points f64,
+    obs/msk as :func:`ba_prepare_obs` makes them, all contiguous.
+    """
     dev = cam_params.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
-    for name, t in (("pose_k", pose_k), ("obs", obs), ("msk", msk),
-                    ("objpoints", objpoints)):
+    named = (("cam_params", cam_params), ("pose_k", pose_k), ("obs", obs),
+             ("msk", msk), ("objpoints", objpoints))
+    for name, t in named[1:]:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, cam_params on {dev}")
     C, F, N = msk.shape
@@ -168,10 +164,13 @@ def _check(cam_params, pose_k, obs, msk, objpoints):
             f"shapes: obs {tuple(obs.shape)}, objpoints "
             f"{tuple(objpoints.shape)}, msk {(C, F, N)}"
         )
-    if obs.dtype != torch.float64 or msk.dtype != torch.uint8:
-        raise ValueError("obs/msk must come from ba_prepare_obs (f64, uint8)")
-    if not (obs.is_contiguous() and msk.is_contiguous()):
-        raise ValueError("obs/msk must be contiguous (use ba_prepare_obs)")
+    if msk.dtype != torch.uint8:
+        raise ValueError("msk must come from ba_prepare_obs (uint8)")
+    for name, t in named:
+        if name != "msk" and t.dtype != torch.float64:
+            raise ValueError(f"{name} must be float64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if min(C, F, N) < 1 or N * 2 > MAX_ROWS:
         raise ValueError(f"unsupported sizes C={C} F={F} N={N}")
     return C, F, N
@@ -183,46 +182,76 @@ def _raise_on(code, what):
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
 
 
+def _launch_blocks(lib, stream, cam_params, pose_k, obs, msk, objpoints,
+                   f_scale, loss_linear):
+    """Allocate the outputs (one flat f32 buffer, scratch included) and
+    launch the block build on ``stream``; no other device work."""
+    C, F, N = msk.shape
+    shapes = ((C, 12, 12), (F, 6, 6), (C, F, 12, 6), (C, F, 12), (C, F, 6),
+              (C, F))
+    sizes = [math.prod(s) for s in shapes]
+    scratch = lib.ba_blocks_scratch_floats(C, F, N)
+    flat = torch.empty(sum(sizes) + scratch, dtype=torch.float32,
+                       device=cam_params.device)
+    parts = flat.split(sizes + [scratch])
+    outs = tuple(p.view(s) for p, s in zip(parts, shapes))
+    code = lib.ba_blocks_launch(
+        cam_params.data_ptr(), pose_k.data_ptr(), objpoints.data_ptr(),
+        obs.data_ptr(), msk.data_ptr(), C, F, N, float(f_scale),
+        int(bool(loss_linear)), *(t.data_ptr() for t in outs),
+        parts[-1].data_ptr(), stream,
+    )
+    _raise_on(code, "ba_blocks_kernel")
+    return outs
+
+
+def _launch_cost(lib, stream, cam_params, pose_k, obs, msk, objpoints,
+                 f_scale, loss_linear):
+    """Allocate the (C, F) output and launch the cost kernel on ``stream``."""
+    C, F, N = msk.shape
+    cost = torch.empty((C, F), dtype=torch.float32, device=cam_params.device)
+    code = lib.ba_cost_launch(
+        cam_params.data_ptr(), pose_k.data_ptr(), objpoints.data_ptr(),
+        obs.data_ptr(), msk.data_ptr(), C, F, N, float(f_scale),
+        int(bool(loss_linear)), cost.data_ptr(), stream,
+    )
+    _raise_on(code, "ba_cost_kernel")
+    return cost
+
+
+def _on_card(launch, counted, cam_params, pose_k, obs, msk, objpoints,
+             f_scale, loss_linear):
+    """Check the inputs, launch on the current stream of their device and
+    count the launch on ``counted``."""
+    _check(cam_params, pose_k, obs, msk, objpoints)
+    lib = _lib()
+    with torch.cuda.device(cam_params.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = launch(lib, stream, cam_params, pose_k, obs, msk, objpoints,
+                     f_scale, loss_linear)
+    counted.launches += 1
+    return out
+
+
 def ba_chunk_blocks(
     cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
 ):
     """Fused block build for one frame chunk.
 
-    cam_params (C, 12), pose_k (Fk, 6), obs/msk from :func:`ba_prepare_obs`,
-    objpoints (N, 3); parameters are used in f64. Returns (U (C,12,12),
+    cam_params (C, 12), pose_k (Fk, 6) and objpoints (N, 3) f64, obs/msk
+    from :func:`ba_prepare_obs`, all contiguous. Returns (U (C,12,12),
     V (Fk,6,6), W (C,Fk,12,6), g_cam (C,Fk,12), g_pose (C,Fk,6),
     cost (C,Fk)), all f32 fragments: the caller reduces gradient and cost
-    over frames and cameras in its data dtype.
+    over frames and cameras in its data dtype. On the card: two kernel
+    launches (``ba_blocks_kernel``, ``ba_reduce_kernel``) and one
+    allocation, nothing else.
     """
     if cam_params.device.type == "cpu":
         return ba_chunk_blocks_reference(
             cam_params, pose_k, obs, msk, objpoints, f_scale, loss_linear
         )
-    C, F, N = _check(cam_params, pose_k, obs, msk, objpoints)
-    lib = _lib()
-    cam_pack, pose_pack = _packs(cam_params, pose_k, with_jac=True)
-    objp = objpoints.to(torch.float64).contiguous()
-    tiles = -(-F // lib.ba_frames_per_block())
-    f32 = dict(dtype=torch.float32, device=cam_params.device)
-    U_part = torch.empty((tiles, C, 12, 12), **f32)
-    V = torch.empty((F, 6, 6), **f32)
-    W = torch.empty((C, F, 12, 6), **f32)
-    g_cam = torch.empty((C, F, 12), **f32)
-    g_pose = torch.empty((C, F, 6), **f32)
-    cost = torch.empty((C, F), **f32)
-    with torch.cuda.device(cam_params.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ba_blocks_launch(
-            cam_pack.data_ptr(), pose_pack.data_ptr(), objp.data_ptr(),
-            obs.data_ptr(), msk.data_ptr(), C, F, N, float(f_scale),
-            int(bool(loss_linear)), U_part.data_ptr(), V.data_ptr(),
-            W.data_ptr(), g_cam.data_ptr(), g_pose.data_ptr(),
-            cost.data_ptr(), stream,
-        )
-    _raise_on(code, "ba_blocks_kernel")
-    ba_chunk_blocks.launches += 1
-    # f32 sum of the per-tile partials: the in-chunk block_dtype contract.
-    return U_part.sum(0), V, W, g_cam, g_pose, cost
+    return _on_card(_launch_blocks, ba_chunk_blocks, cam_params, pose_k, obs,
+                    msk, objpoints, f_scale, loss_linear)
 
 
 def ba_chunk_cost(
@@ -232,27 +261,14 @@ def ba_chunk_cost(
 
     Same inputs as :func:`ba_chunk_blocks`; returns per-(c, f) f32 cost
     fragments (C, Fk) of the f64 residual, which the caller reduces in its
-    data dtype.
+    data dtype. On the card: one kernel launch.
     """
     if cam_params.device.type == "cpu":
         return ba_chunk_cost_reference(
             cam_params, pose_k, obs, msk, objpoints, f_scale, loss_linear
         )
-    C, F, N = _check(cam_params, pose_k, obs, msk, objpoints)
-    lib = _lib()
-    cam_pack, pose_pack = _packs(cam_params, pose_k, with_jac=False)
-    objp = objpoints.to(torch.float64).contiguous()
-    cost = torch.empty((C, F), dtype=torch.float32, device=cam_params.device)
-    with torch.cuda.device(cam_params.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ba_cost_launch(
-            cam_pack.data_ptr(), pose_pack.data_ptr(), objp.data_ptr(),
-            obs.data_ptr(), msk.data_ptr(), C, F, N, float(f_scale),
-            int(bool(loss_linear)), cost.data_ptr(), stream,
-        )
-    _raise_on(code, "ba_cost_kernel")
-    ba_chunk_cost.launches += 1
-    return cost
+    return _on_card(_launch_cost, ba_chunk_cost, cam_params, pose_k, obs, msk,
+                    objpoints, f_scale, loss_linear)
 
 
 ba_chunk_blocks.launches = 0

@@ -1,0 +1,180 @@
+"""The CUDA source of the BA kernels, run on the CPU through a C++ shim.
+
+``csrc/ba_kernels.cu`` is compiled with the host C++ compiler against a
+small header that emulates the CUDA subset it uses: one ``std::thread`` per
+CUDA thread, a block at a time, ``std::barrier`` for ``__syncthreads``,
+``__syncwarp`` and the shuffles, static arrays for shared memory, and a
+template for the ``<<<...>>>`` launches. The library is bound with
+``ops/ba_cuda.bind`` and driven through the wrappers' own launch functions
+(``_launch_blocks``, ``_launch_cost``) on CPU tensors, so the kernels'
+indexing, tiling, staging and reductions are checked against the plain
+twins without a card. It does not check what only the card shows (nvcc's
+acceptance of the source, timing, FMA contraction): chip_smoke.py and
+tests/test_torch_cuda.py do. Tolerances are those of
+tests/test_torch_cuda.py: U/V/W atol 2e-5 * max|.|, gradients atol
+3e-5 * max(1, max|.|), total cost rtol 3e-5, cost fragments rtol 2e-5
+atol 1e-7. Skips where no C++20 compiler is installed.
+"""
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from multicam_calibration_tpu_torch.models.lm_core import _predict
+from multicam_calibration_tpu_torch.ops import ba_cuda
+from tests.test_torch_cuda import _assert_blocks_close, _problem
+
+SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "multicam_calibration_tpu_torch", "csrc", "ba_kernels.cu",
+)
+
+SHIM = r"""
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::cos; using std::fabs; using std::sin; using std::sqrt;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __constant__
+#define __restrict__
+#define __launch_bounds__(...)
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0;
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(int) { return "emulated"; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline void sincos(double x, double* s, double* c) { *s = std::sin(x); *c = std::cos(x); }
+inline std::barrier<>* g_block;
+inline std::vector<std::unique_ptr<std::barrier<>>> g_warps;
+inline float g_lanes[1024];
+inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  g_lanes[threadIdx.x] = v;
+  __syncwarp();
+  const float r = g_lanes[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)];
+  __syncwarp();
+  return r;
+}
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::barrier<> bar(block.x);
+      g_block = &bar;
+      g_warps.clear();
+      for (unsigned w = 0; w < block.x / 32; ++w) g_warps.emplace_back(new std::barrier<>(32));
+      std::vector<std::thread> threads;
+      for (unsigned t = 0; t < block.x; ++t) {
+        threads.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          kernel(args...);
+          g_block->arrive_and_drop();  // a finished thread leaves every barrier
+          g_warps[t / 32]->arrive_and_drop();
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+  }
+}
+"""
+
+
+def _emulated_source():
+    with open(SRC) as f:
+        src = f.read()
+    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];", r"static \1 \2[16384];", src)
+    src = src.replace("__shared__", "static")
+    return re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", src, flags=re.S)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++20 compiler for the CPU emulation of the CUDA source")
+    d = tmp_path_factory.mktemp("ba_kernels_emulated")
+    (d / "shim.h").write_text(SHIM)
+    (d / "emu.cpp").write_text(_emulated_source())
+    out = d / "libba_emulated.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", str(out),
+         str(d / "emu.cpp")], capture_output=True, text=True, timeout=300, check=False,
+    )
+    if proc.returncode != 0 and "barrier" in proc.stderr:
+        pytest.skip("the C++ compiler has no <barrier> (C++20)")
+    assert proc.returncode == 0, proc.stderr
+    return ba_cuda.bind(ctypes.CDLL(str(out)))
+
+
+def _rig(**kwargs):
+    """tests/test_torch_cuda.py's perturbed rig on the CPU, as kernel inputs."""
+    return _inputs(*_problem("cpu", **kwargs))
+
+
+def _random_board(C, F, N, seed):
+    """N random planar board points seen by C cameras in F frames."""
+    rng = np.random.default_rng(seed)
+    objp = np.concatenate([rng.uniform(-50, 50, (N, 2)), np.zeros((N, 1))], 1)
+    cam = np.tile([800.0, 810.0, 320.0, 240.0, -0.1, 0.02, 0.1, -0.2, 0.05, 5.0, -3.0, 0.0],
+                  (C, 1)) + rng.normal(0, 0.05, (C, 12))
+    poses = np.concatenate([rng.normal(0, 0.3, (F, 3)), rng.normal(0, 20, (F, 3)) + [0, 0, 600]], 1)
+    pred = _predict(torch.as_tensor(cam), torch.as_tensor(poses), torch.as_tensor(objp)).numpy()
+    obs = pred + rng.normal(0, 0.5, pred.shape)
+    return _inputs(cam, poses, obs, rng.random((C, F, N)) > 0.3, objp)
+
+
+def _inputs(cam, poses, obs, mask, objp):
+    t = torch.as_tensor
+    return (t(cam), t(poses), *ba_cuda.ba_prepare_obs(t(obs), t(mask)), t(objp))
+
+
+CASES = {
+    "ragged23": lambda: _rig(n_frames=23, shift=3e-5),
+    "padded61+6": lambda: _rig(n_cameras=2, n_frames=61, seed=9, shift=3e-5, pad=6),
+    "angles": lambda: _rig(n_cameras=5, n_frames=11, seed=5, edge_angles=True),
+    "N64": lambda: _random_board(2, 19, 64, seed=0),
+    "N3": lambda: _random_board(3, 11, 3, seed=1),
+    "N1": lambda: _random_board(3, 17, 1, seed=2),
+}
+
+
+@pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_emulated_kernels_match_twins(lib, case, loss_linear):
+    args = CASES[case]()
+    got = ba_cuda._launch_blocks(lib, 0, *args, 1.0, loss_linear)
+    _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(*args, 1.0, loss_linear))
+    for a, b in zip(got, ba_cuda._launch_blocks(lib, 0, *args, 1.0, loss_linear)):
+        assert torch.equal(a, b)  # a fixed sum order: a relaunch is bit-identical
+    if case.startswith("padded"):
+        for x in (got[1][61:], got[2][:, 61:], got[5][:, 61:]):
+            assert float(x.abs().max()) == 0.0
+    cost = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
+    ref = ba_cuda.ba_chunk_cost_reference(*args, 1.0, loss_linear)
+    np.testing.assert_allclose(cost.double().numpy(), ref.double().numpy(), rtol=2e-5, atol=1e-7)

@@ -24,6 +24,7 @@ import multicam_calibration_tpu_torch as mct
 from multicam_calibration_tpu_torch.models import lm_core
 from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
 from multicam_calibration_tpu_torch.ops import ba_cuda, corner_cuda
+from multicam_calibration_tpu_torch.ops.rotation import so3_exp
 
 DETECT_FRAMES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -43,7 +44,23 @@ def device():
     return torch.device("cuda")
 
 
-def _problem(device, n_cameras=3, n_frames=23, seed=4, shift=0.0):
+# Rotation vectors at the edges of the so3 formulas' branches: exactly 0,
+# theta^2 = 1e-8 (1 -+ 1e-3) on either side of the series switch, theta near pi.
+_T = 1e-4  # sqrt(1e-8)
+EDGE_ANGLES = (
+    (0.0, 0.0, 0.0),
+    (_T * np.sqrt(1 - 1e-3), 0.0, 0.0),
+    (0.0, _T * np.sqrt(1 + 1e-3), 0.0),
+    (0.0, 0.0, np.pi - 1e-6),
+    tuple(np.full(3, (np.pi - 1e-3) / np.sqrt(3))),
+)
+
+
+def _problem(device, n_cameras=3, n_frames=23, seed=4, shift=0.0, pad=0,
+             edge_angles=False):
+    """Perturbed synthetic rig; ``pad`` zero-pose frames with empty masks
+    appended; with ``edge_angles`` the cameras and the first frames take the
+    rotation vectors of EDGE_ANGLES in turn."""
     rig = mct.make_synthetic_rig(
         n_cameras=n_cameras, n_frames=n_frames, noise_px=0.3, dropout=0.3,
         seed=seed,
@@ -51,12 +68,26 @@ def _problem(device, n_cameras=3, n_frames=23, seed=4, shift=0.0):
     rng = np.random.default_rng(2)
     ext = rig.all_extrinsics + rng.normal(0, 1e-3, rig.all_extrinsics.shape)
     cam = _params_to_arrays(ext, rig.all_intrinsics) + shift
+    poses = np.nan_to_num(rig.calib_poses)
+    obs = np.nan_to_num(rig.all_calib_uvs)
+    mask = ~np.isnan(rig.all_calib_uvs).any(-1)
+    if edge_angles:
+        poses[: len(EDGE_ANGLES), :3] = EDGE_ANGLES
+        # Each camera keeps the board 4 extents in front of it, centred.
+        R_p = so3_exp(torch.as_tensor(poses[:, :3])).numpy()
+        pw = rig.calib_objpoints @ R_p.transpose(0, 2, 1) + poses[:, None, 3:]
+        centre = pw.reshape(-1, 3).mean(0)
+        depth = 4 * np.linalg.norm(pw.reshape(-1, 3) - centre, axis=1).max()
+        for i in range(n_cameras):
+            cam[i, 6:9] = EDGE_ANGLES[i % len(EDGE_ANGLES)]
+            R_c = so3_exp(torch.as_tensor(cam[i, 6:9])).numpy()
+            cam[i, 9:12] = np.array([0.0, 0.0, depth]) - R_c @ centre
+    N = obs.shape[2]
+    poses = np.concatenate([poses, np.zeros((pad, 6))])
+    obs = np.concatenate([obs, np.zeros((n_cameras, pad, N, 2))], 1)
+    mask = np.concatenate([mask, np.zeros((n_cameras, pad, N), bool)], 1)
     as_t = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
-    return (
-        as_t(cam), as_t(np.nan_to_num(rig.calib_poses)),
-        as_t(np.nan_to_num(rig.all_calib_uvs)),
-        as_t(~np.isnan(rig.all_calib_uvs).any(-1)), as_t(rig.calib_objpoints),
-    )
+    return as_t(cam), as_t(poses), as_t(obs), as_t(mask), as_t(rig.calib_objpoints)
 
 
 def _assert_blocks_close(got, ref):
@@ -89,6 +120,75 @@ def test_kernels_match_twins(device, loss_linear):
     again = ba_cuda.ba_chunk_blocks(cam, poses, *prepared, objp, **kw)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
+@pytest.mark.parametrize(
+    "case",
+    [dict(n_frames=23, shift=3e-5), dict(n_cameras=2, n_frames=61, seed=9, shift=3e-5, pad=6),
+     dict(n_cameras=5, n_frames=23, seed=5, edge_angles=True),
+     dict(n_cameras=5, n_frames=61, seed=9, pad=6, edge_angles=True)],
+    ids=["ragged23", "padded61+6", "angles23", "angles61+6"],
+)
+def test_kernels_match_twins_at_edges(device, case, loss_linear):
+    """Ragged and zero-pose padded frame counts, and rotation vectors at the
+    edges of the in-kernel so3 formulas: kernel vs twin, relaunch bit-identical,
+    padded frames exactly 0 in V, W and cost."""
+    cam, poses, obs, mask, objp = _problem(device, **case)
+    args = (cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp)
+    kw = dict(loss_linear=loss_linear)
+    got = ba_cuda.ba_chunk_blocks(*args, **kw)
+    _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(*args, **kw))
+    for a, b in zip(got, ba_cuda.ba_chunk_blocks(*args, **kw)):
+        assert torch.equal(a, b)
+    Fr = poses.shape[0] - case.get("pad", 0)
+    for x in (got[1][Fr:], got[2][:, Fr:], got[5][:, Fr:]):
+        assert x.numel() == 0 or float(x.abs().max()) == 0.0
+    cost = ba_cuda.ba_chunk_cost(*args, **kw)
+    ref = ba_cuda.ba_chunk_cost_reference(*args, **kw)
+    np.testing.assert_allclose(
+        cost.double().cpu().numpy(), ref.double().cpu().numpy(), rtol=2e-5, atol=1e-7
+    )
+
+
+@pytest.mark.cuda
+def test_block_build_launches_at_most_two_kernels(device):
+    """torch.profiler sees at most two CUDA kernel launches per
+    ba_chunk_blocks call and one per ba_chunk_cost call: the wrappers do no
+    tensor arithmetic of their own on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cam, poses, obs, mask, objp = _problem(device)
+    args = (cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp)
+    for fn, most in ((ba_cuda.ba_chunk_blocks, 2), (ba_cuda.ba_chunk_cost, 1)):
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        assert 0 < n <= 3 * most, (fn.__name__, n)
+
+
+@pytest.mark.cuda
+def test_wrappers_take_only_what_the_kernels_read(device):
+    """The wrappers convert nothing: f32 or non-contiguous parameters raise;
+    lm_solve hands f32 data to the kernels in f64."""
+    cam, poses, obs, mask, objp = _problem(device)
+    prepared = ba_cuda.ba_prepare_obs(obs, mask)
+    for bad in ((cam.float(), poses, objp), (cam, poses.t().contiguous().t(), objp),
+                (cam, poses, objp.float())):
+        for fn in (ba_cuda.ba_chunk_blocks, ba_cuda.ba_chunk_cost):
+            with pytest.raises(ValueError):
+                fn(bad[0], bad[1], *prepared, bad[2])
+    opts = lm_core.LMOptions(max_iters=3, block_impl="cuda", cost_impl="cuda", **RECIPE)
+    before = ba_cuda.ba_chunk_blocks.launches
+    _, _, info = lm_core.lm_solve(cam.float(), poses.float(), obs.float(), mask,
+                                  objp.float(), opts)
+    assert np.isfinite(info["final_cost"])
+    assert ba_cuda.ba_chunk_blocks.launches - before == info["n_iters"]
 
 
 @pytest.mark.cuda

@@ -206,14 +206,29 @@ def test_bundle_adjustment_helpers_match_jax():
     np.testing.assert_array_equal(x, jba.serialize_params(ext, intr, poses))
     for a, b in zip(tba.deserialize_params(x, 3)[::2], jba.deserialize_params(x, 3)[::2]):
         np.testing.assert_array_equal(a, b)
-    pred_t = tba.predict_calib_uvs(ext, intr, rig.calib_objpoints, poses).numpy()
+    pred_t = tba.predict_calib_uvs(ext, intr, rig.calib_objpoints, poses, device="cpu").numpy()
     pred_j = np.asarray(jba.predict_calib_uvs(ext, intr, rig.calib_objpoints, poses))
     np.testing.assert_allclose(pred_t, pred_j, rtol=1e-12)
     np.testing.assert_allclose(
-        tba.embed_calib_objpoints(rig.calib_objpoints, poses).numpy(),
+        tba.embed_calib_objpoints(rig.calib_objpoints, poses, device="cpu").numpy(),
         np.asarray(jba.embed_calib_objpoints(rig.calib_objpoints, poses)),
         rtol=1e-12, atol=1e-12,
     )
+
+
+def test_bundle_adjustment_helpers_default_to_the_card(monkeypatch):
+    """device=None means the CUDA device: without one, numpy input raises
+    instead of landing on the CPU; tensor input keeps its own device."""
+    rig = jmct.make_synthetic_rig(n_cameras=2, n_frames=3, seed=5)
+    ext, intr, poses = rig.all_extrinsics, rig.all_intrinsics, rig.calib_poses
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tba.embed_calib_objpoints(rig.calib_objpoints, poses)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tba.predict_calib_uvs(ext, intr, rig.calib_objpoints, poses)
+    pred = tba.predict_calib_uvs(ext, intr, rig.calib_objpoints, torch.as_tensor(poses))
+    assert pred.device.type == "cpu" and pred.dtype == torch.float64
+    assert pred.shape == (2, 3, rig.calib_objpoints.shape[0], 2)
 
 
 def test_port_imports_without_jax():
