@@ -38,8 +38,11 @@ def poses_from_jax(poses, dtype=torch.float64, device=None):
 def lm_options_from_jax(fields: dict) -> LMOptions:
     """JAX ``LMOptions`` fields (``dataclasses.asdict``) -> port ``LMOptions``.
 
-    ``block_impl``/``cost_impl`` map "xla" -> "torch", "pallas" -> "cuda";
-    every other field carries over unchanged. Unknown fields raise.
+    ``block_impl``/``cost_impl`` map "xla" -> "torch", "pallas" -> "cuda",
+    so options carried over keep the JAX package's route (its default
+    ``cost_impl="xla"`` becomes "torch", not the port's default "auto");
+    every other field carries over unchanged, and a field that is absent
+    takes the port's default. Unknown fields raise.
     """
     fields = dict(fields)
     for key in ("block_impl", "cost_impl"):

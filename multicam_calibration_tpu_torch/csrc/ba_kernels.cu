@@ -6,9 +6,12 @@
 //   ba_cost_kernel                      <- _cost_kernel (per-damping-try robust cost)
 // All three take the raw parameters, cam (C, 12) and pose (F, 6) in f64, and
 // compute the rotations in the kernel (rotation_pack below, the formulas of
-// ops/rotation.py); the block and cost kernels run the same
-// prediction chain (chain_residual, the counterpart of
-// ba_pallas.py:_chain_residual).
+// ops/rotation.py). The block and cost kernels share one front end: the same
+// tiling (grid (frame tiles, cameras), a thread per board point), the same
+// loads (load_tile_point), packs (tile_packs), prediction chain (world_point,
+// chain_residual, the counterpart of ba_pallas.py:_chain_residual), robust loss
+// (robust_rho_w) and per-frame cost sum (frame_cost), so the cost of a damping
+// try is computed exactly as the block build computes it.
 //
 // Numerical contract (ba_pallas.py:24-27, lm_core.py:519-527):
 //   - R_c, R_p, the prediction chain and the residual run in native fp64
@@ -66,6 +69,35 @@
 // What it leaves out: tensor cores (each pair is a 70 x 20 Gram, ~13k FMAs, and
 // TF32 would break the f32 block contract; 3xTF32 is left for later), TMA and
 // cp.async (one pair's observations are 560 B, which coalesced loads cover).
+//
+// Per-try cost, one launch per call:
+//   ba_cost_kernel: the block kernel's tile and front end, without rows or
+//   Gram, on a grid (groups of kCostTiles = 2 tiles, cameras). A thread takes
+//   the same board point of each of its block's tiles: it starts their mask and
+//   observation loads (one 16-byte load for a pair), waits for the block's one
+//   camera pack and 2 P pose packs (warp 0, as above), runs the two f64 chains
+//   side by side and the f32 robust loss, and leaves the points' costs in
+//   shared memory; warp w then sums frame w of each tile in the block kernel's
+//   order and writes the (c, f) fragments. Each fragment is cast to f64 and
+//   added up per warp, then per block in warp order, into one f64 per block;
+//   the last block to arrive (an integer ticket; no float atomics) adds the
+//   blocks' sums in a fixed order (thread t takes blocks t, t + 256, ..., then
+//   a shuffle tree, then the warps in order) and writes the total, so the
+//   caller reads one number and a relaunch is bit-identical whichever block
+//   comes last.
+// Bounds on the H100 at the bench shape: 3.4 MB in (observations f64, mask u8,
+// parameters), 22 KB out, 1.00 us at 3.35 TB/s, against ~9M f64 flops of chain
+// (0.27 us at 34 TFLOP/s): bound by bytes. The kernel is far from that bound
+// and held by latency, not by rate: a block is one dependent chain of loads,
+// packs, chain, sums and ticket. What the design does about it: 396 blocks of
+// 8 warps, 3 on each of the 132 SMs and so all resident in one wave (one tile
+// a block gave 792 blocks in one and a half waves); one pack per block instead
+// of every camera's in every block; two independent points a thread instead of
+// a second round for 3 lanes; every load in flight before the packs; and a
+// total that reads one f64 per block instead of every fragment. Shared memory
+// holds the packs, the per-point costs and the sums (< 4 KB). No tensor cores:
+// there is no product to feed them. No TMA or cp.async: one pair's
+// observations are 560 B, which coalesced 16-byte loads cover.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,9 +107,8 @@ namespace {
 constexpr int kThreads = 256;                       // block kernel: 8 warps
 constexpr int kWarps = kThreads / 32;               // at most one frame per warp
 constexpr int kMinBlocksPerSM = 3;                  // <= 85 registers a thread
-constexpr int kCostFrames = 4;                      // cost kernel: one warp per frame
-constexpr int kCostThreads = 32 * kCostFrames;
-constexpr int kPointsPerLane = 2;                   // cost kernel: N <= 64
+constexpr int kCostTiles = 2;                       // cost kernel: frame tiles a block
+constexpr int kCostMinBlocksPerSM = 3;              // cost kernel: <= 85 registers a thread
 constexpr int kRowStride = 20;                      // 12 A + 6 B + weighted residual + 0
 constexpr int kUpperU = 78;                         // 12 * 13 / 2
 constexpr int kUpperV = 21;                         // 6 * 7 / 2
@@ -204,26 +235,9 @@ __device__ __forceinline__ void robust_rho_w(float r, float fs2, int linear,
   }
 }
 
-// Camera pack (kCamPack f64: fx fy cx cy k1 k2 | t_c | R_c) of cam (12,) = fx fy
-// cx cy k1 k2 rx ry rz tx ty tz.
-__device__ __forceinline__ void camera_pack(const double* cam, double* p) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) p[i] = cam[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) p[6 + i] = cam[9 + i];
-  const double r[3] = {cam[6], cam[7], cam[8]};
-  rotation_pack(r, p + 9, nullptr);
-}
-
-// Pose pack (12 f64: R_p row-major | t_p) of pose (6,) = rho t_p.
-__device__ __forceinline__ void pose_pack(const double* pose, double* p) {
-  const double r[3] = {pose[0], pose[1], pose[2]};
-  rotation_pack(r, p, nullptr);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) p[9 + i] = pose[3 + i];
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Sum over the warp's lanes by a fixed xor-shuffle tree; every lane gets it.
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -237,6 +251,100 @@ __device__ __forceinline__ void world_point(const double* P, const double b[3],
     rb[i] = P[3 * i] * b[0] + P[3 * i + 1] * b[1] + P[3 * i + 2] * b[2];
     pw[i] = rb[i] + P[9 + i];
   }
+}
+
+// One thread's board point of a (camera, frame tile) block: frame f0 + fl of
+// the tile, point n of the board.
+struct TilePoint {
+  int fl, n;
+  bool ok;              // inside the tile and below F
+  bool live;            // observed
+  double ou, ov;        // the observation (0 where not ok)
+  double b[3];          // the board point
+};
+
+// Thread t's point of the tile at frame f0 of camera c, with its mask,
+// observation pair (one 16-byte load) and board point. Both kernels call this
+// before the packs so that the loads' latency overlaps the rotations.
+__device__ __forceinline__ TilePoint load_tile_point(const double* __restrict__ objp,
+                                                     const double* __restrict__ obs,
+                                                     const uint8_t* __restrict__ msk, int c,
+                                                     int f0, int F, int N, int P, int t) {
+  TilePoint tp;
+  tp.fl = t / N;
+  tp.n = t - tp.fl * N;
+  tp.ok = tp.fl < P && f0 + tp.fl < F;
+  tp.live = false;
+  tp.ou = tp.ov = 0.0;
+  tp.b[0] = tp.b[1] = tp.b[2] = 0.0;
+  if (tp.ok) {
+    const size_t o = ((size_t)c * F + f0 + tp.fl) * N + tp.n;
+    tp.live = msk[o] != 0;
+    const double2 uv = reinterpret_cast<const double2*>(obs)[o];
+    tp.ou = uv.x;
+    tp.ov = uv.y;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tp.b[i] = objp[3 * tp.n + i];
+  }
+  return tp;
+}
+
+// The packs of one block into shared memory: the camera's (kCamPack f64: fx fy
+// cx cy k1 k2 | t_c | R_c row-major) and those of the P < 32 frames from f0 (12
+// f64 each: R_p row-major | t_p). Warp 0 computes the frames' rotations on
+// lanes < P and the camera's on lane 31, one code path for all; warps 1 and 2
+// copy the scalars. With kJl also the left Jacobians J_l(r_c), J_l(rho_p)
+// (f32). The caller synchronizes the block.
+template <bool kJl>
+__device__ __forceinline__ void tile_packs(const double* __restrict__ cam_c,
+                                           const double* __restrict__ pose, int f0, int F,
+                                           int P, int warp, int lane, double* s_cam,
+                                           double (*s_pose)[12], float* s_jlc,
+                                           float (*s_jlp)[9]) {
+  if (warp == 0) {
+    const bool cam_lane = lane == 31;
+    if (cam_lane || (lane < P && f0 + lane < F)) {
+      const double* rv = cam_lane ? cam_c + 6 : pose + (size_t)(f0 + lane) * 6;
+      const double r[3] = {rv[0], rv[1], rv[2]};
+      float* jl = nullptr;
+      if constexpr (kJl) jl = cam_lane ? s_jlc : s_jlp[lane];
+      rotation_pack(r, cam_lane ? s_cam + 9 : s_pose[lane], jl);
+    }
+  } else if (warp == 1) {
+    if (lane < 6) s_cam[lane] = cam_c[lane];                // fx fy cx cy k1 k2
+    else if (lane < 9) s_cam[lane] = cam_c[lane + 3];       // t_c
+  } else if (warp == 2) {
+    for (int j = lane; j < 3 * P; j += 32) {
+      const int k = j / 3, i = j - 3 * k;
+      if (f0 + k < F) s_pose[k][9 + i] = pose[(size_t)(f0 + k) * 6 + 3 + i];   // t_p
+    }
+  }
+}
+
+// Robust cost of a point's residual pair (f32, from the f64 chain).
+__device__ __forceinline__ float residual_cost(const Chain& ch, float fs2, int linear) {
+  float cost = 0.0f, rho, w;
+  robust_rho_w((float)ch.ru, fs2, linear, rho, w);
+  cost += rho;
+  robust_rho_w((float)ch.rv, fs2, linear, rho, w);
+  cost += rho;
+  return cost;
+}
+
+// The cost of frame `warp` of the tile from its points' costs s_rho[warp * N +
+// n]: lane l adds points l and l + 32 (N <= 64), then the shuffle tree. Every
+// lane of the warp calls it and gets the sum.
+__device__ __forceinline__ float frame_cost(const float* s_rho, int warp, int lane, int N,
+                                            bool frame_ok) {
+  float cost_lane = 0.0f;
+  if (frame_ok) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = lane + 32 * j;
+      if (m < N) cost_lane += s_rho[warp * N + m];
+    }
+  }
+  return warp_sum(cost_lane);
 }
 
 // The two weighted rows (u, v) of one observed point, written to row and
@@ -337,46 +445,19 @@ ba_blocks_kernel(const double* __restrict__ cam, const double* __restrict__ pose
   float* rows = reinterpret_cast<float*>(rows_smem);
   const int frame_floats = frame_smem_floats(N);
 
-  // This thread's board point: frame f0 + t / N, point t % N. The loads are
-  // issued before the packs so that their latency overlaps the rotations.
-  const int fl = t / N, n = t - fl * N;
-  const bool point_ok = fl < P && f0 + fl < F;
-  const size_t o = ((size_t)c * F + f0 + fl) * N + n;
-  bool live = false;
-  double ou = 0.0, ov = 0.0, b[3] = {0.0, 0.0, 0.0};
-  if (point_ok) {
-    live = msk[o] != 0;
-    ou = obs[2 * o];
-    ov = obs[2 * o + 1];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) b[i] = objp[3 * n + i];
-  }
-
-  // --- packs: warp 0 computes the frames' rotations on lanes < P and the
-  // camera's on lane 31, one code path for all; warps 1 and 2 copy the scalars
-  const double* cam_c = cam + (size_t)c * 12;
-  if (warp == 0) {
-    const bool cam_lane = lane == 31;
-    if (cam_lane || (lane < P && f0 + lane < F)) {
-      const double* rv = cam_lane ? cam_c + 6 : pose + (size_t)(f0 + lane) * 6;
-      const double r[3] = {rv[0], rv[1], rv[2]};
-      rotation_pack(r, cam_lane ? s_cam + 9 : s_pose[lane], cam_lane ? s_jlc : s_jlp[lane]);
-    }
-  } else if (warp == 1) {
-    if (lane < 6) s_cam[lane] = cam_c[lane];                // fx fy cx cy k1 k2
-    else if (lane < 9) s_cam[lane] = cam_c[lane + 3];       // t_c
-  } else if (warp == 2 && lane < 3 * P) {
-    const int k = lane / 3, i = lane - 3 * k;
-    if (f0 + k < F) s_pose[k][9 + i] = pose[(size_t)(f0 + k) * 6 + 3 + i];   // t_p
-  }
+  // This thread's board point; its loads start before the packs.
+  const TilePoint tp = load_tile_point(objp, obs, msk, c, f0, F, N, P, t);
+  tile_packs<true>(cam + (size_t)c * 12, pose, f0, F, P, warp, lane, s_cam, s_pose, s_jlc,
+                   s_jlp);
   __syncthreads();
 
   // --- weighted rows, two per board point, every point of the tile at once
-  if (point_ok) {
-    float* row = rows + (size_t)fl * frame_floats + 2 * n * kRowStride;
+  if (tp.ok) {
+    float* row = rows + (size_t)tp.fl * frame_floats + 2 * tp.n * kRowStride;
     float rho = 0.0f;
-    if (live) {
-      rho = point_rows(s_cam, s_jlc, s_pose[fl], s_jlp[fl], b, ou, ov, fs2, linear, row);
+    if (tp.live) {
+      rho = point_rows(s_cam, s_jlc, s_pose[tp.fl], s_jlp[tp.fl], tp.b, tp.ou, tp.ov, fs2,
+                       linear, row);
     } else {
       float4* dst = reinterpret_cast<float4*>(row);
 #pragma unroll
@@ -454,16 +535,7 @@ ba_blocks_kernel(const double* __restrict__ cam, const double* __restrict__ pose
       if (lane < 6) gpose_out[cf * 6 + lane] = frows[kStageGpose + lane];
       if (lane < kUpperV) v_part[cf * kUpperV + lane] = frows[kStageV + lane];
     }
-    // cost: lane l adds points l and l + 32 of the frame, then the shuffle tree
-    float cost_lane = 0.0f;
-    if (frame_ok) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int m = lane + 32 * j;
-        if (m < N) cost_lane += s_rho[warp * N + m];
-      }
-    }
-    const float cost = warp_sum(cost_lane);
+    const float cost = frame_cost(s_rho, warp, lane, N, frame_ok);
     if (frame_ok && lane == 0) cost_out[cf] = cost;
   }
   __syncthreads();
@@ -510,63 +582,103 @@ ba_reduce_kernel(const float* __restrict__ u_part, const float* __restrict__ v_p
   }
 }
 
-// Per-try cost: one block per tile of kCostFrames frames, one warp per
-// frame, a loop over cameras. The block computes every camera's pack into
-// shared memory ([C][kCamPack] f64), each warp its frame's pose pack.
-__global__ void __launch_bounds__(kCostThreads)
+// Per-try cost: the block kernel's front end on a grid (groups of kCostTiles
+// frame tiles, cameras). A thread takes the same board point of each of the
+// block's tiles (independent chains, in flight together), a warp the same
+// frame of each tile for the frame's sum. cost_out (C, F) gets every fragment,
+// part[block] the f64 sum of the block's fragments, and total_out the sum of
+// all of part, added by the last block to arrive. *ticket counts the arrivals:
+// 0 before the launch, and 0 again after it (launches that share a ticket must
+// be ordered on one stream).
+__global__ void __launch_bounds__(kThreads, kCostMinBlocksPerSM)
 ba_cost_kernel(const double* __restrict__ cam, const double* __restrict__ pose,
                const double* __restrict__ objp, const double* __restrict__ obs,
-               const uint8_t* __restrict__ msk, int C, int F, int N, float fs2,
-               int linear, float* __restrict__ cost_out) {
-  extern __shared__ double s_cams[];                       // [C][kCamPack]
-  __shared__ double s_pose[kCostFrames][12];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int f = blockIdx.x * kCostFrames + warp;
-  for (int c = threadIdx.x; c < C; c += kCostThreads) {
-    camera_pack(cam + (size_t)c * 12, s_cams + (size_t)c * kCamPack);
+               const uint8_t* __restrict__ msk, int C, int F, int N, int P, float fs2,
+               int linear, float* __restrict__ cost_out, double* part,
+               double* __restrict__ total_out, unsigned int* __restrict__ ticket) {
+  static_assert(kCostTiles * kWarps < 32, "lane 31 of warp 0 computes the camera's pack");
+  __shared__ double s_cam[kCamPack];
+  __shared__ double s_pose[kCostTiles * kWarps][12];
+  __shared__ float s_rho[kCostTiles][kThreads];
+  __shared__ double s_sum[kWarps];
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int c = blockIdx.y;
+  const int f0 = blockIdx.x * kCostTiles * P;
+
+  TilePoint tp[kCostTiles];
+#pragma unroll
+  for (int j = 0; j < kCostTiles; ++j) {
+    tp[j] = load_tile_point(objp, obs, msk, c, f0 + j * P, F, N, P, t);
   }
-  if (f < F && lane == 0) pose_pack(pose + (size_t)f * 6, s_pose[warp]);
+  tile_packs<false>(cam + (size_t)c * 12, pose, f0, F, kCostTiles * P, warp, lane, s_cam,
+                    s_pose, nullptr, nullptr);
   __syncthreads();
-  if (f >= F) return;  // warp-uniform: no barrier below
 
-  double pw[kPointsPerLane][3];
+  // --- each point's cost; masked points never enter the chain
 #pragma unroll
-  for (int j = 0; j < kPointsPerLane; ++j) {
-    const int n = lane + 32 * j;
-    pw[j][0] = pw[j][1] = pw[j][2] = 0.0;
-    if (n < N) {
-      const double b[3] = {objp[3 * n], objp[3 * n + 1], objp[3 * n + 2]};
-      double rbd[3];
-      world_point(s_pose[warp], b, pw[j], rbd);
+  for (int j = 0; j < kCostTiles; ++j) {
+    float rho = 0.0f;
+    if (tp[j].live) {
+      double pw[3], rbd[3];
+      world_point(s_pose[j * P + tp[j].fl], tp[j].b, pw, rbd);
+      Chain ch;
+      chain_residual(s_cam, pw, tp[j].ou, tp[j].ov, true, ch);
+      rho = residual_cost(ch, fs2, linear);
+    }
+    s_rho[j][t] = rho;
+  }
+  __syncthreads();
+
+  // --- the fragments of frames f0 + j P + warp, and their f64 sum per warp
+  double warp_total = 0.0;
+  if (warp < P) {
+#pragma unroll
+    for (int j = 0; j < kCostTiles; ++j) {
+      const int f = f0 + j * P + warp;
+      const bool frame_ok = f < F;                          // warp-uniform
+      const float cost = frame_cost(s_rho[j], warp, lane, N, frame_ok);
+      if (frame_ok && lane == 0) {
+        cost_out[(size_t)c * F + f] = cost;
+        warp_total += (double)cost;
+      }
     }
   }
+  if (lane == 0) s_sum[warp] = warp_total;
+  __syncthreads();
 
-  for (int c = 0; c < C; ++c) {
-    const double* cp = s_cams + (size_t)c * kCamPack;
-    const size_t cf = (size_t)c * F + f;
-    float cost_lane = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kPointsPerLane; ++j) {
-      const int n = lane + 32 * j;
-      if (n >= N) continue;
-      const size_t o = cf * N + n;
-      if (msk[o] == 0) continue;
-      Chain ch;
-      chain_residual(cp, pw[j], obs[2 * o], obs[2 * o + 1], true, ch);
-      float rho, w;
-      robust_rho_w((float)ch.ru, fs2, linear, rho, w);
-      cost_lane += rho;
-      robust_rho_w((float)ch.rv, fs2, linear, rho, w);
-      cost_lane += rho;
-    }
-    const float cost = warp_sum(cost_lane);
-    if (lane == 0) cost_out[cf] = cost;
+  // --- the block's sum, published before its ticket is drawn
+  const unsigned int n_blocks = gridDim.x * gridDim.y;
+  if (t == 0) {
+    double block_total = 0.0;
+    for (int w = 0; w < kWarps; ++w) block_total += s_sum[w];
+    part[blockIdx.y * gridDim.x + blockIdx.x] = block_total;
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == n_blocks - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;                                      // block-uniform
+
+  // --- the last block: every block's sum is in device memory; add them
+  __threadfence();
+  double acc = 0.0;
+  for (unsigned int i = t; i < n_blocks; i += kThreads) acc += __ldcg(part + i);
+  acc = warp_sum(acc);
+  if (lane == 0) s_sum[warp] = acc;
+  __syncthreads();
+  if (t == 0) {
+    double total = 0.0;
+    for (int w = 0; w < kWarps; ++w) total += s_sum[w];
+    *total_out = total;
+    *ticket = 0u;
   }
 }
 
-// Frames per block of the block kernel: every board point of the tile gets a
-// thread, and every frame a warp for its Gram (N <= 64 gives at least 4).
+// Frames per block of both kernels: every board point of the tile gets a
+// thread, and every frame a warp for its Gram and its cost sum (N <= 64 gives
+// at least 4).
 int frames_per_block(int N) { return kThreads / N < kWarps ? kThreads / N : kWarps; }
 
 int tiles_of(int F, int per_tile) { return (F + per_tile - 1) / per_tile; }
@@ -610,14 +722,23 @@ int ba_blocks_launch(const void* cam, const void* pose, const void* objp, const 
   return (int)cudaGetLastError();
 }
 
-// Inputs as ba_blocks_launch. Output: cost (C, F) f32. One launch.
+// f64 scratch ba_cost_launch needs: one sum per block.
+long long ba_cost_scratch_doubles(int C, int F, int N) {
+  return (long long)C * tiles_of(F, kCostTiles * frames_per_block(N));
+}
+
+// Inputs as ba_blocks_launch. Outputs: cost (C, F) f32 and total, one f64, the
+// sum of the fragments. scratch: ba_cost_scratch_doubles(C, F, N) f64. ticket:
+// one u32 that is 0 and that no launch in flight on another stream shares; the
+// kernel leaves it 0. One launch.
 int ba_cost_launch(const void* cam, const void* pose, const void* objp, const void* obs,
                    const void* msk, int C, int F, int N, double f_scale, int loss_linear,
-                   void* cost, void* stream) {
-  const size_t smem = (size_t)C * kCamPack * sizeof(double);
-  ba_cost_kernel<<<tiles_of(F, kCostFrames), kCostThreads, smem, (cudaStream_t)stream>>>(
+                   void* cost, void* total, void* scratch, void* ticket, void* stream) {
+  const int P = frames_per_block(N);
+  ba_cost_kernel<<<dim3(tiles_of(F, kCostTiles * P), C), kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)cam, (const double*)pose, (const double*)objp, (const double*)obs,
-      (const uint8_t*)msk, C, F, N, (float)(f_scale * f_scale), loss_linear, (float*)cost);
+      (const uint8_t*)msk, C, F, N, P, (float)(f_scale * f_scale), loss_linear, (float*)cost,
+      (double*)scratch, (double*)total, (unsigned int*)ticket);
   return (int)cudaGetLastError();
 }
 

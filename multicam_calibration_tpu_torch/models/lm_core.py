@@ -16,8 +16,8 @@ PyTorch. The design is the JAX engine's:
 
 The JAX ``lax.while_loop`` becomes a host Python loop: each damping try
 reads its cost back to decide acceptance. On CUDA tensors with the all-f32
-recipe, the block build and (when selected) the per-try cost run the
-hand-written kernels of :mod:`..ops.ba_cuda`.
+recipe, the block build and the per-try cost run the hand-written kernels
+of :mod:`..ops.ba_cuda`.
 
 Not ported yet (ROADMAP.md, Queue 1): ``frame_chunk`` (the chunked slab
 layout), ``jacobian="jacfwd"`` and frame sharding (``axis_name``). Each
@@ -100,11 +100,15 @@ class LMOptions:
     # never runs the kernel; "cuda" forces it and raises on CPU tensors or
     # an unsupported recipe.
     block_impl: str = "auto"
-    # Per-try cost: "cuda" runs the cost kernel (f64 residual, the same
-    # chain as the block kernel); "auto" takes it on CUDA tensors when the
-    # recipe holds (soft_l1/linear, N*2 <= 128, cost_dtype="float32");
-    # "torch" never. The JAX default ("xla") maps to "torch".
-    cost_impl: str = "torch"
+    # Per-try cost: "auto" runs the CUDA cost kernel (f64 residual, the same
+    # chain as the block kernel, as the JAX package's Pallas route) on CUDA
+    # tensors whenever the recipe holds (soft_l1/linear loss, N*2 <= 128,
+    # cost_dtype="float32") and the plain torch path otherwise (on that
+    # recipe an f32 projection, as the JAX package's XLA route); "torch"
+    # never runs the kernel; "cuda" forces it and raises on CPU tensors or
+    # an unsupported recipe. The JAX default is "xla", which carries over
+    # as "torch" (convert.lm_options_from_jax).
+    cost_impl: str = "auto"
     # Only "analytic" is ported; "jacfwd" raises NotImplementedError.
     jacobian: str = "analytic"
 
@@ -261,7 +265,8 @@ def compute_cost(cam_params, pose_params, obs, mask, objpoints, opts,
     With ``opts.cost_dtype`` set, the projection and residual run in that
     dtype and only the reduction in the data dtype. With ``cost_impl``
     routing to the CUDA kernel, the residual is f64 and the per-(c, f) f32
-    fragments are reduced here in the data dtype.
+    fragments are reduced in the data dtype: in the kernel for f64 data,
+    here otherwise.
     """
     _no_sharding(axis_name)
     return _cost(cam_params, pose_params, obs, mask, objpoints, opts, None)
@@ -274,11 +279,11 @@ def _cost(cam_params, pose_params, obs, mask, objpoints, opts, prepared):
         if prepared is None:
             prepared = ba_cuda.ba_prepare_obs(obs, mask)
         cam64, pose64, objp64 = _kernel_params(cam_params, pose_params, objpoints)
-        frags = ba_cuda.ba_chunk_cost(
+        frags, total = ba_cuda.ba_chunk_cost(
             cam64, pose64, *prepared, objp64,
             f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
         )
-        return frags.to(dtype).sum()
+        return total if dtype == torch.float64 else frags.to(dtype).sum()
     cd = _torch_dtype(opts.cost_dtype)
     if cd is not None and cd != dtype:
         r = compute_residuals(

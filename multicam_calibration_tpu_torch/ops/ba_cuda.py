@@ -7,8 +7,10 @@ live in ``csrc/ba_kernels.cu`` (sm_90a, plain C ABI, loaded with ctypes):
   (camera, frame) pair) and ``ba_reduce_kernel`` (V over cameras, U over
   frame tiles, in a fixed order), which together replace the Pallas
   ``_ba_kernel``: the fused linearization and normal-block build;
-- ``ba_chunk_cost`` launches ``ba_cost_kernel``, which replaces the Pallas
-  ``_cost_kernel``: the per-damping-try robust cost.
+- ``ba_chunk_cost`` launches ``ba_cost_kernel`` (one block per camera and
+  pair of frame tiles, the block kernel's front end), which replaces the Pallas
+  ``_cost_kernel``: the per-damping-try robust cost, as per-(c, f) fragments
+  and their f64 total.
 
 The kernels take the raw parameters and compute the rotations and left
 Jacobians themselves, so a wrapper does no tensor arithmetic on the card:
@@ -25,10 +27,11 @@ launches in a plain integer attribute, ``ba_chunk_blocks.launches`` and
 Precision contract (ba_pallas.py:24-27): the residual is f64; Jacobian rows,
 robust weights, in-frame products and in-tile sums are f32; every output is
 an f32 fragment, and the caller reduces gradient and cost over frames and
-cameras in f64.
+cameras in f64 (the cost kernel also returns that f64 reduction itself).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -45,7 +48,7 @@ __all__ = [
     "ba_chunk_cost_reference",
 ]
 
-MAX_ROWS = 128  # N*2 <= 128 (point, u/v) rows per frame: two points per lane
+MAX_ROWS = 128  # N*2 <= 128 (point, u/v) rows per frame: N <= 64 board points
 
 
 def ba_prepare_obs(obs, mask):
@@ -100,7 +103,7 @@ def ba_chunk_cost_reference(
     cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
 ):
     """Plain PyTorch version of :func:`ba_chunk_cost`: (C, Fk) f32 fragments
-    of the robust cost of the f64 residual."""
+    of the robust cost of the f64 residual, and their f64 sum (0-d)."""
     from ..models.lm_core import _robust_cost, compute_residuals
 
     f64 = torch.float64
@@ -109,7 +112,8 @@ def ba_chunk_cost_reference(
         cam_params.to(f64), pose_k.to(f64), obs.to(f64), m, objpoints.to(f64)
     ).to(torch.float32)
     r2 = torch.where(m[..., None], r**2, 0.0)
-    return _robust_cost(r2, _recipe(f_scale, loss_linear), axis=(-2, -1))
+    frags = _robust_cost(r2, _recipe(f_scale, loss_linear), axis=(-2, -1))
+    return frags, frags.to(f64).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +136,9 @@ def bind(lib):
     lib.ba_blocks_launch.restype = i32
     lib.ba_blocks_scratch_floats.argtypes = [i32, i32, i32]
     lib.ba_blocks_scratch_floats.restype = ctypes.c_longlong
-    lib.ba_cost_launch.argtypes = head + [ptr, ptr]
+    lib.ba_cost_launch.argtypes = head + [ptr] * 4 + [ptr]
+    lib.ba_cost_scratch_doubles.argtypes = [i32, i32, i32]
+    lib.ba_cost_scratch_doubles.restype = ctypes.c_longlong
     lib.ba_cost_launch.restype = i32
     lib.ba_error_string.argtypes = [i32]
     lib.ba_error_string.restype = ctypes.c_char_p
@@ -205,18 +211,35 @@ def _launch_blocks(lib, stream, cam_params, pose_k, obs, msk, objpoints,
     return outs
 
 
+@functools.cache
+def _ticket(device, stream):
+    """The cost kernel's arrival counter for launches on ``stream`` of
+    ``device``: one int32, zero between launches (the last block to arrive
+    resets it). One per stream, since only launches ordered on one stream
+    may share it."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def _launch_cost(lib, stream, cam_params, pose_k, obs, msk, objpoints,
                  f_scale, loss_linear):
-    """Allocate the (C, F) output and launch the cost kernel on ``stream``."""
+    """Allocate the outputs (one f64 buffer: the total, the kernel's
+    scratch, then the (C, F) f32 fragments) and launch the cost kernel on
+    ``stream``; no other device work. Returns (fragments, total)."""
     C, F, N = msk.shape
-    cost = torch.empty((C, F), dtype=torch.float32, device=cam_params.device)
+    dev = cam_params.device
+    head = 1 + lib.ba_cost_scratch_doubles(C, F, N)
+    flat = torch.empty(head + (C * F + 1) // 2, dtype=torch.float64, device=dev)
+    total = flat.select(0, 0)
+    frags = flat.view(torch.float32).as_strided((C, F), (F, 1), 2 * head)
+    out = flat.data_ptr()
     code = lib.ba_cost_launch(
         cam_params.data_ptr(), pose_k.data_ptr(), objpoints.data_ptr(),
         obs.data_ptr(), msk.data_ptr(), C, F, N, float(f_scale),
-        int(bool(loss_linear)), cost.data_ptr(), stream,
+        int(bool(loss_linear)), out + 8 * head, out, out + 8,
+        _ticket(dev, stream).data_ptr(), stream,
     )
     _raise_on(code, "ba_cost_kernel")
-    return cost
+    return frags, total
 
 
 def _on_card(launch, counted, cam_params, pose_k, obs, msk, objpoints,
@@ -225,8 +248,11 @@ def _on_card(launch, counted, cam_params, pose_k, obs, msk, objpoints,
     count the launch on ``counted``."""
     _check(cam_params, pose_k, obs, msk, objpoints)
     lib = _lib()
-    with torch.cuda.device(cam_params.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = cam_params.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # A launch goes to the thread's current device: switch only if needed.
+    switch = torch.cuda.current_device() != dev.index
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         out = launch(lib, stream, cam_params, pose_k, obs, msk, objpoints,
                      f_scale, loss_linear)
     counted.launches += 1
@@ -259,9 +285,12 @@ def ba_chunk_cost(
 ):
     """Fused robust-cost evaluation for one frame chunk.
 
-    Same inputs as :func:`ba_chunk_blocks`; returns per-(c, f) f32 cost
-    fragments (C, Fk) of the f64 residual, which the caller reduces in its
-    data dtype. On the card: one kernel launch.
+    Same inputs as :func:`ba_chunk_blocks`; returns (fragments, total):
+    the per-(c, f) f32 cost fragments (C, Fk) of the f64 residual, and
+    their sum as a 0-d f64 tensor, each fragment cast to f64 and added in a
+    fixed order (``fragments.to(float64).sum()``; a caller with another data
+    dtype reduces the fragments itself). On the card: one kernel launch and
+    one allocation, nothing else.
     """
     if cam_params.device.type == "cpu":
         return ba_chunk_cost_reference(

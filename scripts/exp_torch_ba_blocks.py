@@ -36,9 +36,9 @@ VARIANTS = {  # name -> [(old, new), ...] applied to the committed source
     "probe: empty body": [("float* rows = reinterpret_cast<float*>(rows_smem);",
                            "if (N > 0) return;\n  float* rows = reinterpret_cast<float*>(rows_smem);")],
     "probe: no packs": [("if (warp == 0) {", "if (false) {")],
-    "probe: no point rows": [("if (live) {", "if (false) {")],
+    "probe: no point rows": [("if (tp.live) {", "if (false) {")],
     "probe: no Gram loop": [(GRAM_LOOP, "for (int r = 0; r < 0; ++r) {")],
-    "probe: no rows, no Gram": [("if (live) {", "if (false) {"),
+    "probe: no rows, no Gram": [("if (tp.live) {", "if (false) {"),
                                 (GRAM_LOOP, "for (int r = 0; r < 0; ++r) {")],
     "probe: no global outputs": [(OUTPUTS, OUTPUTS.replace("frame_ok", "false"))],
 }

@@ -3,10 +3,12 @@
 Runs the PyTorch port's ``lm_solve`` on the bench problem (the problem and
 options of chip_smoke.py) in three variants:
 
-- ``kernel``: block build through the CUDA kernel, per-try cost in torch
-  (the bench options as they are);
-- ``kernel_cost``: both CUDA kernels (``cost_impl="cuda"``);
-- ``plain``: the plain PyTorch path (``block_impl="torch"``).
+- ``kernel``: the bench options as they are, on the default routes: block
+  build and per-try cost through the CUDA kernels;
+- ``kernel_blocks_only``: block build through the CUDA kernel, per-try cost
+  in torch (``cost_impl="torch"``);
+- ``plain``: the plain PyTorch path (``block_impl="torch"``,
+  ``cost_impl="torch"``).
 
 For each: the wall time of 10 solves (host clock around work that ends in
 ``torch.cuda.synchronize()``), then one solve under ``torch.profiler``:
@@ -58,8 +60,8 @@ def main():
     opts = lm_options_from_jax(BENCH_JAX_OPTIONS)
     variants = {
         "kernel": opts,
-        "kernel_cost": dataclasses.replace(opts, cost_impl="cuda"),
-        "plain": dataclasses.replace(opts, block_impl="torch"),
+        "kernel_blocks_only": dataclasses.replace(opts, cost_impl="torch"),
+        "plain": dataclasses.replace(opts, block_impl="torch", cost_impl="torch"),
     }
 
     def solve(o, cam):

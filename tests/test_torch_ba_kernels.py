@@ -8,7 +8,14 @@ file's tolerances: the Pallas kernel runs a two-float f32 chain and f32
 contractions, the twin an f64 chain and f32 contractions in another order,
 so fragments agree to f32 rounding:
 U/V/W atol 2e-5 * max|.|, gradients atol 3e-5 * max(1, max|.|), total
-cost rtol 3e-5, per-(c, f) cost fragments rtol 2e-5 atol 1e-7.
+cost rtol 3e-5, per-(c, f) cost fragments rtol 2e-5 atol 1e-7. The cost
+wrapper's f64 total is the f64 sum of its own fragments (rtol 1e-12).
+
+The cost parity here is against the JAX package's Pallas route (an f64-grade
+residual, which the CUDA kernel and its twin also compute), not against its
+XLA route (an f32 projection, which the port's ``cost_impl="torch"`` path
+mirrors; tests/test_torch_lm_core.py and tests/test_torch_slice.py compare
+that one).
 """
 import math
 import os
@@ -121,9 +128,14 @@ def test_cost_twin_matches_pallas_kernel(problem, loss_linear):
         np.float64,
     )
     launches = ba_cuda.ba_chunk_cost.launches
-    port = _port(ba_cuda.ba_chunk_cost, problem, loss_linear=loss_linear)
+    port, total = _port(ba_cuda.ba_chunk_cost, problem, loss_linear=loss_linear)
     assert port.shape == ref.shape == (C, F)
     np.testing.assert_allclose(port, ref, rtol=2e-5, atol=1e-7)
+    # the total: the f64 sum of the wrapper's fragments, and Pallas's at the
+    # total-cost tolerance
+    assert total.shape == ()
+    np.testing.assert_allclose(total, port.sum(), rtol=1e-12)
+    np.testing.assert_allclose(total, ref.sum(), rtol=3e-5)
     assert ba_cuda.ba_chunk_cost.launches == launches
 
 
@@ -152,19 +164,47 @@ def test_padded_frames_near_identity_camera():
     _assert_blocks_close(port, ref)
 
 
+class _AsIfOnCard:
+    """Stands for a tensor on a CUDA device, for the dispatch's device check."""
+
+    def __init__(self, tensor):
+        self.shape = tensor.shape
+        self.device = torch.device("cuda", 0)
+
+
 def test_dispatch_policy(problem):
-    """'auto' on CPU tensors takes the plain path; 'cuda' on CPU tensors
-    raises; recipes the kernels do not implement never route to them."""
+    """The default ('auto') on CPU tensors takes the plain path and on CUDA
+    tensors the kernels, exactly when the recipe holds; 'torch' never;
+    'cuda' on CPU tensors raises; recipes the kernels do not implement
+    never route to them."""
     objp = torch.as_tensor(problem[4])
     f64 = torch.float64
     recipe = tlm.LMOptions(**RECIPE)
+    assert recipe.block_impl == recipe.cost_impl == "auto"
     assert not tlm._cuda_block_build(recipe, f64, objp)
+    assert not tlm._cuda_cost_eval(recipe, f64, objp)
     assert not tlm._cuda_cost_eval(
         tlm.LMOptions(cost_impl="auto", **RECIPE), f64, objp
     )
     assert not tlm._cuda_block_build(tlm.LMOptions(), f64, objp)
     assert not tlm._cuda_block_build(tlm.LMOptions(block_impl="torch", **RECIPE), f64, objp)
-    assert not tlm._cuda_cost_eval(tlm.LMOptions(**RECIPE), f64, objp)  # "torch"
+    # the same options on CUDA tensors: the default routes to both kernels
+    on_card = _AsIfOnCard(objp)
+    assert tlm._cuda_block_build(recipe, f64, on_card)
+    assert tlm._cuda_cost_eval(recipe, f64, on_card)
+    assert tlm._cuda_cost_eval(tlm.LMOptions(cost_dtype="float32"), f64, on_card)
+    assert not tlm._cuda_cost_eval(tlm.LMOptions(), f64, on_card)  # no f32 cost recipe
+    assert not tlm._cuda_cost_eval(
+        tlm.LMOptions(loss="huber", **RECIPE), f64, on_card
+    )
+    assert not tlm._cuda_cost_eval(
+        tlm.LMOptions(cost_impl="torch", **RECIPE), f64, on_card
+    )
+    assert not tlm._cuda_block_build(
+        tlm.LMOptions(block_impl="torch", **RECIPE), f64, on_card
+    )
+    assert tlm._cuda_cost_eval(tlm.LMOptions(cost_impl="cuda", **RECIPE), f64, on_card)
+    assert not tlm._cuda_cost_eval(recipe, f64, _AsIfOnCard(torch.zeros((65, 3))))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tlm._cuda_block_build(tlm.LMOptions(block_impl="cuda", **RECIPE), f64, objp)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -188,10 +228,19 @@ def test_dispatch_policy(problem):
 def test_auto_solve_on_cpu_never_launches(problem):
     cam, poses, obs, mask, objp = (torch.as_tensor(x) for x in problem)
     before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
-    opts = tlm.LMOptions(max_iters=2, cost_impl="auto", **RECIPE)
+    opts = tlm.LMOptions(max_iters=2, **RECIPE)
+    assert opts.cost_impl == "auto" and opts.block_impl == "auto"
     _, _, info = tlm.lm_solve(cam, poses, obs, mask, objp, opts)
     assert np.isfinite(info["final_cost"])
     assert (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before
+    # on the CPU the default is the torch route: the same trajectory, bit for bit
+    _, _, info_t = tlm.lm_solve(
+        cam, poses, obs, mask, objp,
+        tlm.LMOptions(max_iters=2, block_impl="torch", cost_impl="torch", **RECIPE),
+    )
+    assert info_t["final_cost"] == info["final_cost"]
+    assert info_t["nfev"] == info["nfev"]
+    assert torch.equal(info_t["history"], info["history"])
 
 
 def test_prepare_obs_zeroes_unobserved_and_nan():

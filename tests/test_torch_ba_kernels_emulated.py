@@ -3,8 +3,10 @@
 ``csrc/ba_kernels.cu`` is compiled with the host C++ compiler against a
 small header that emulates the CUDA subset it uses: one ``std::thread`` per
 CUDA thread, a block at a time, ``std::barrier`` for ``__syncthreads``,
-``__syncwarp`` and the shuffles, static arrays for shared memory, and a
-template for the ``<<<...>>>`` launches. The library is bound with
+``__syncwarp`` and the shuffles, static arrays for shared memory, a
+compiler builtin for the integer ``atomicAdd``, and a template for the
+``<<<...>>>`` launches (blocks run one after another, in grid order). The
+library is bound with
 ``ops/ba_cuda.bind`` and driven through the wrappers' own launch functions
 (``_launch_blocks``, ``_launch_cost``) on CPU tensors, so the kernels'
 indexing, tiling, staging and reductions are checked against the plain
@@ -13,7 +15,9 @@ acceptance of the source, timing, FMA contraction): chip_smoke.py and
 tests/test_torch_cuda.py do. Tolerances are those of
 tests/test_torch_cuda.py: U/V/W atol 2e-5 * max|.|, gradients atol
 3e-5 * max(1, max|.|), total cost rtol 3e-5, cost fragments rtol 2e-5
-atol 1e-7. Skips where no C++20 compiler is installed.
+atol 1e-7; the cost kernel's f64 total against the f64 sum of its own
+fragments at rtol 1e-12 (two orders of one f64 sum). Skips where no C++20
+compiler is installed.
 """
 import ctypes
 import os
@@ -51,6 +55,7 @@ using std::cos; using std::fabs; using std::sin; using std::sqrt;
 #define __restrict__
 #define __launch_bounds__(...)
 struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 {
   unsigned x, y, z;
@@ -67,16 +72,22 @@ inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline void sincos(double x, double* s, double* c) { *s = std::sin(x); *c = std::cos(x); }
 inline std::barrier<>* g_block;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warps;
-inline float g_lanes[1024];
+inline double g_lanes[1024];  // holds a float exactly
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int o) {
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int o) {
   g_lanes[threadIdx.x] = v;
   __syncwarp();
-  const float r = g_lanes[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)];
+  const T r = (T)g_lanes[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)];
   __syncwarp();
   return r;
 }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline double __ldcg(const double* p) { return *p; }
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
   gridDim = grid;
@@ -162,6 +173,12 @@ CASES = {
     "N3": lambda: _random_board(3, 11, 3, seed=1),
     "N1": lambda: _random_board(3, 17, 1, seed=2),
 }
+COST_CASES = {
+    **CASES,
+    "C1": lambda: _random_board(1, 9, 35, seed=3),
+    "C6": lambda: _rig(n_cameras=6, n_frames=15, seed=7),
+    "C64": lambda: _random_board(64, 5, 35, seed=4),
+}
 
 
 @pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
@@ -175,6 +192,31 @@ def test_emulated_kernels_match_twins(lib, case, loss_linear):
     if case.startswith("padded"):
         for x in (got[1][61:], got[2][:, 61:], got[5][:, 61:]):
             assert float(x.abs().max()) == 0.0
-    cost = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
-    ref = ba_cuda.ba_chunk_cost_reference(*args, 1.0, loss_linear)
-    np.testing.assert_allclose(cost.double().numpy(), ref.double().numpy(), rtol=2e-5, atol=1e-7)
+    # both kernels run one front end and one frame sum: the same fragments
+    cost, _ = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
+    np.testing.assert_allclose(cost.numpy(), got[5].numpy(), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
+@pytest.mark.parametrize("case", list(COST_CASES))
+def test_emulated_cost_kernel_matches_twin(lib, case, loss_linear):
+    """ba_cost_kernel and its in-kernel total against ba_chunk_cost_reference:
+    fragments at rtol 2e-5 atol 1e-7, the total against the f64 sum of the
+    kernel's own fragments at rtol 1e-12 and against the twin's at rtol 3e-5;
+    a relaunch is bit-identical and finds the arrival counter back at 0."""
+    args = COST_CASES[case]()
+    frags, total = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
+    ref_frags, ref_total = ba_cuda.ba_chunk_cost_reference(*args, 1.0, loss_linear)
+    assert frags.shape == ref_frags.shape == args[3].shape[:2]
+    assert frags.dtype == torch.float32 and total.dtype == torch.float64
+    assert total.shape == ref_total.shape == ()
+    np.testing.assert_allclose(
+        frags.double().numpy(), ref_frags.double().numpy(), rtol=2e-5, atol=1e-7
+    )
+    np.testing.assert_allclose(float(total), float(frags.double().sum()), rtol=1e-12)
+    np.testing.assert_allclose(float(total), float(ref_total), rtol=3e-5)
+    assert int(ba_cuda._ticket(args[0].device, 0)) == 0
+    frags2, total2 = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
+    assert torch.equal(frags, frags2) and torch.equal(total, total2)
+    if case.startswith("padded"):
+        assert float(frags[:, 61:].abs().max()) == 0.0

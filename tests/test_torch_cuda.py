@@ -8,7 +8,9 @@ without JAX. There ``tests/conftest.py`` (which imports JAX) is skipped:
 Kernel vs plain twin on the same device tensors, at the kernel-parity
 tolerances of tests/test_ba_pallas.py: U/V/W atol 2e-5 * max|.|, gradients
 atol 3e-5 * max(1, max|.|), total cost rtol 3e-5, cost fragments rtol 2e-5
-atol 1e-7 (both run an f64 chain and f32 contractions, in other orders).
+atol 1e-7 (both run an f64 chain and f32 contractions, in other orders); the
+cost kernel's f64 total against the f64 sum of its own fragments at rtol
+1e-12 (one f64 sum in two orders).
 The corner kernel rounds every multiply and add as its twin does, in the
 same order, so the two are compared bit for bit; detection through it is
 compared with the CPU run of the same frames.
@@ -90,6 +92,18 @@ def _problem(device, n_cameras=3, n_frames=23, seed=4, shift=0.0, pad=0,
     return as_t(cam), as_t(poses), as_t(obs), as_t(mask), as_t(rig.calib_objpoints)
 
 
+def _assert_cost_close(got, ref):
+    """(fragments, total) of the cost kernel against the twin's."""
+    (frags, total), (ref_frags, ref_total) = got, ref
+    assert frags.dtype == torch.float32 and total.dtype == torch.float64
+    assert frags.shape == ref_frags.shape and total.shape == ()
+    np.testing.assert_allclose(
+        frags.double().cpu().numpy(), ref_frags.double().cpu().numpy(), rtol=2e-5, atol=1e-7
+    )
+    np.testing.assert_allclose(float(total), float(frags.double().sum()), rtol=1e-12)
+    np.testing.assert_allclose(float(total), float(ref_total), rtol=3e-5)
+
+
 def _assert_blocks_close(got, ref):
     got = [x.double().cpu().numpy() for x in got]
     ref = [x.double().cpu().numpy() for x in ref]
@@ -111,14 +125,15 @@ def test_kernels_match_twins(device, loss_linear):
     got = ba_cuda.ba_chunk_blocks(cam, poses, *prepared, objp, **kw)
     assert ba_cuda.ba_chunk_blocks.launches == launches + 1
     _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(cam, poses, *prepared, objp, **kw))
+    launches = ba_cuda.ba_chunk_cost.launches
     cost = ba_cuda.ba_chunk_cost(cam, poses, *prepared, objp, **kw)
-    ref = ba_cuda.ba_chunk_cost_reference(cam, poses, *prepared, objp, **kw)
-    np.testing.assert_allclose(
-        cost.double().cpu().numpy(), ref.double().cpu().numpy(), rtol=2e-5, atol=1e-7
-    )
-    # No atomics: a second launch is bit-identical.
+    assert ba_cuda.ba_chunk_cost.launches == launches + 1
+    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(cam, poses, *prepared, objp, **kw))
+    # No float atomics: a second launch is bit-identical.
     again = ba_cuda.ba_chunk_blocks(cam, poses, *prepared, objp, **kw)
     for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(cost, ba_cuda.ba_chunk_cost(cam, poses, *prepared, objp, **kw)):
         assert torch.equal(a, b)
 
 
@@ -146,17 +161,47 @@ def test_kernels_match_twins_at_edges(device, case, loss_linear):
     for x in (got[1][Fr:], got[2][:, Fr:], got[5][:, Fr:]):
         assert x.numel() == 0 or float(x.abs().max()) == 0.0
     cost = ba_cuda.ba_chunk_cost(*args, **kw)
-    ref = ba_cuda.ba_chunk_cost_reference(*args, **kw)
+    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(*args, **kw))
+    for a, b in zip(cost, ba_cuda.ba_chunk_cost(*args, **kw)):
+        assert torch.equal(a, b)
+    assert cost[0][:, Fr:].numel() == 0 or float(cost[0][:, Fr:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
+@pytest.mark.parametrize("case", ["bench", "C64", "C1"])
+def test_cost_kernel_matches_twin_at_scale(device, case, loss_linear):
+    """The cost kernel at the bench shape (6 x 922 x 35, 396 blocks), on a
+    64-camera rig and on one camera: fragments and total against the twin,
+    many relaunches bit-identical whichever block arrives last, and the
+    fragments equal to the block kernel's."""
+    if case == "bench":
+        import chip_smoke
+
+        cam, poses, obs, mask, objp = chip_smoke.bench_problem(torch, device)
+    else:
+        cam, poses, obs, mask, objp = _problem(
+            device, n_cameras=64 if case == "C64" else 1, n_frames=30, seed=3
+        )
+    args = (cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp)
+    kw = dict(loss_linear=loss_linear)
+    cost = ba_cuda.ba_chunk_cost(*args, **kw)
+    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(*args, **kw))
+    for _ in range(20):
+        for a, b in zip(cost, ba_cuda.ba_chunk_cost(*args, **kw)):
+            assert torch.equal(a, b)
+    block_cost = ba_cuda.ba_chunk_blocks(*args, **kw)[5]
     np.testing.assert_allclose(
-        cost.double().cpu().numpy(), ref.double().cpu().numpy(), rtol=2e-5, atol=1e-7
+        cost[0].cpu().numpy(), block_cost.cpu().numpy(), rtol=1e-6, atol=1e-9
     )
 
 
 @pytest.mark.cuda
 def test_block_build_launches_at_most_two_kernels(device):
     """torch.profiler sees at most two CUDA kernel launches per
-    ba_chunk_blocks call and one per ba_chunk_cost call: the wrappers do no
-    tensor arithmetic of their own on the card."""
+    ba_chunk_blocks call and one per ba_chunk_cost call (its total is added
+    in the same kernel): the wrappers do no tensor arithmetic of their own
+    on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     cam, poses, obs, mask, objp = _problem(device)
@@ -211,15 +256,19 @@ def test_lm_solve_through_kernels_matches_plain(device):
     base = lm_core.LMOptions(
         solve_dtype="float32", lambda_escalation=3.0, max_iters=40, **RECIPE
     )
+    # The default routes: both kernels, one block build per iteration and one
+    # cost launch per cost evaluation.
+    assert base.block_impl == base.cost_impl == "auto"
     before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
-    _, _, info_k = lm_core.lm_solve(
-        cam, poses, obs, mask, objp, dataclasses.replace(base, cost_impl="cuda")
-    )
+    _, _, info_k = lm_core.lm_solve(cam, poses, obs, mask, objp, base)
     assert ba_cuda.ba_chunk_blocks.launches - before[0] == info_k["n_iters"]
     assert ba_cuda.ba_chunk_cost.launches - before[1] == info_k["nfev"]
+    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
     _, _, info_p = lm_core.lm_solve(
-        cam, poses, obs, mask, objp, dataclasses.replace(base, block_impl="torch")
+        cam, poses, obs, mask, objp,
+        dataclasses.replace(base, block_impl="torch", cost_impl="torch"),
     )
+    assert (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before
     ck, cp = info_k["final_cost"], info_p["final_cost"]
     assert abs(ck - cp) <= 1e-3 * cp, (ck, cp)
 

@@ -173,9 +173,13 @@ def test_options_match_jax_fields():
     jf = {f.name: f.default for f in dataclasses.fields(jlm.LMOptions)}
     tf = {f.name: f.default for f in dataclasses.fields(tlm.LMOptions)}
     assert jf.keys() == tf.keys()
-    impl = {"xla": "torch", "pallas": "cuda", "auto": "auto"}
+    assert jf["block_impl"] == tf["block_impl"] == "auto"
+    # The per-try cost: JAX defaults to its XLA route; the port to "auto",
+    # its kernel on CUDA tensors with the f32-cost recipe and torch otherwise.
+    assert (jf["cost_impl"], tf["cost_impl"]) == ("xla", "auto")
     for k, v in jf.items():
-        assert tf[k] == (impl[v] if k.endswith("_impl") else v), k
+        if not k.endswith("_impl"):
+            assert tf[k] == v, k
     assert tlm.HIST_FIELDS == jlm.HIST_FIELDS
 
 

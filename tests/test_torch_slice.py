@@ -188,7 +188,12 @@ def test_convert_carries_parameters_and_options():
     topts = convert.lm_options_from_jax(dataclasses.asdict(jopts))
     assert topts.block_impl == "cuda" and topts.cost_impl == "auto"
     assert dataclasses.asdict(topts) | {"block_impl": "pallas"} == dataclasses.asdict(jopts)
-    assert convert.lm_options_from_jax(dataclasses.asdict(jlm.LMOptions())) == tlm.LMOptions()
+    # JAX's default options keep JAX's routes: its cost_impl "xla" carries
+    # over as "torch", where the port's own default is "auto"
+    carried = convert.lm_options_from_jax(dataclasses.asdict(jlm.LMOptions()))
+    assert jlm.LMOptions().cost_impl == "xla" and carried.cost_impl == "torch"
+    assert tlm.LMOptions().cost_impl == "auto"
+    assert carried == dataclasses.replace(tlm.LMOptions(), cost_impl="torch")
 
 
 def test_bundle_adjustment_helpers_match_jax():
