@@ -2,7 +2,9 @@
 
 Counterpart of ``multicam_calibration_tpu/ops/pallas_kernels.py``. The kernel
 lives in ``csrc/corner_kernels.cu`` (sm_90a, plain C ABI, loaded with
-ctypes) as one template, ``corner_kernel<kPeaks>``:
+ctypes) as one template, ``corner_kernel<kPeaks, RG>``, compiled for the
+Gaussian radii of the port's own paths (``RADII``: sigma 1.5, 3.5, 6 and 9)
+and for RG = 0, which reads any other radius <= ``MAX_RADIUS`` at run time:
 
 - ``corner_response_peaks`` launches it with peaks, replacing the Pallas
   ``_response_peaks_kernel``: Gaussian smoothing, Hessian saddle response
@@ -41,6 +43,7 @@ __all__ = [
 ]
 
 MAX_RADIUS = 31  # 2 rg + 1 <= 63 taps in the kernel's parameter block
+RADII = (5, 11, 18, 27)  # radii with a compile-time instantiation (csrc: radius_instance)
 
 
 def gaussian_taps(sigma):
@@ -120,7 +123,11 @@ def peaks_of(resp_ext, nms_radius):
 def _lib():
     from ._build import load_library
 
-    lib = load_library("corner_kernels").lib
+    return bind(load_library("corner_kernels").lib)
+
+
+def bind(lib):
+    """Declare the C interface of a loaded ``corner_kernels`` library; returns it."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.corner_launch.argtypes = [
         ptr, i32, i32, i32, ctypes.POINTER(ctypes.c_float), i32, i32, i32, ptr, ptr, ptr,
@@ -128,12 +135,14 @@ def _lib():
     lib.corner_launch.restype = i32
     lib.corner_error_string.argtypes = [i32]
     lib.corner_error_string.restype = ctypes.c_char_p
+    lib.corner_smem_bytes.argtypes = [i32, i32, i32]
+    lib.corner_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _launch(gray, sigma, nms_radius, peaks, what):
-    if gray.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {gray.device}")
+def _launch(lib, stream, gray, sigma, nms_radius, peaks, what):
+    """Check the sizes, allocate the outputs and launch the kernel on
+    ``stream``; no other device work. Returns (resp, peak or None)."""
     gray = _as_f32(gray).contiguous()
     B, H, W = gray.shape
     rg, taps = gaussian_taps(sigma)
@@ -141,20 +150,27 @@ def _launch(gray, sigma, nms_radius, peaks, what):
         raise ValueError(
             f"unsupported sigma {sigma} / nms_radius {nms_radius} / shape {(B, H, W)}"
         )
-    lib = _lib()
     resp = torch.empty_like(gray)
     peak = torch.empty(gray.shape, dtype=torch.uint8, device=gray.device) if peaks else None
     c_taps = (ctypes.c_float * len(taps))(*taps.tolist())
-    with torch.cuda.device(gray.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.corner_launch(
-            gray.data_ptr(), B, H, W, c_taps, rg, int(nms_radius), int(peaks),
-            resp.data_ptr(), None if peak is None else peak.data_ptr(), stream,
-        )
+    code = lib.corner_launch(
+        gray.data_ptr(), B, H, W, c_taps, rg, int(nms_radius), int(peaks),
+        resp.data_ptr(), None if peak is None else peak.data_ptr(), stream,
+    )
     if code != 0:
         msg = lib.corner_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
     return resp, peak
+
+
+def _on_card(gray, sigma, nms_radius, peaks, what):
+    """Launch on the current stream of the CUDA tensor's device."""
+    if gray.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {gray.device}")
+    lib = _lib()
+    with torch.cuda.device(gray.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _launch(lib, stream, gray, sigma, nms_radius, peaks, what)
 
 
 def corner_response_peaks(gray, sigma=1.5, nms_radius=4):
@@ -166,7 +182,7 @@ def corner_response_peaks(gray, sigma=1.5, nms_radius=4):
     """
     if gray.device.type == "cpu":
         return corner_response_peaks_reference(gray, sigma, nms_radius)
-    resp, peak = _launch(gray, sigma, nms_radius, True, "corner_peaks_kernel")
+    resp, peak = _on_card(gray, sigma, nms_radius, True, "corner_peaks_kernel")
     corner_response_peaks.launches += 1
     return resp, peak.view(torch.bool)
 
@@ -175,7 +191,7 @@ def corner_response_fused(gray, sigma=1.5):
     """Saddle response Ixy^2 - Ixx * Iyy over (B, H, W) grays, f32."""
     if gray.device.type == "cpu":
         return corner_response_fused_reference(gray, sigma)
-    resp, _ = _launch(gray, sigma, 0, False, "corner_response_kernel")
+    resp, _ = _on_card(gray, sigma, 0, False, "corner_response_kernel")
     corner_response_fused.launches += 1
     return resp
 

@@ -3,7 +3,8 @@
 ``csrc/ba_kernels.cu`` is compiled with the host C++ compiler against a
 small header that emulates the CUDA subset it uses: one ``std::thread`` per
 CUDA thread, a block at a time, ``std::barrier`` for ``__syncthreads``,
-``__syncwarp`` and the shuffles, static arrays for shared memory, a
+``__syncwarp`` and the shuffles, a NaN-filled buffer of the card's size for
+dynamic shared memory and statics for the rest, a
 compiler builtin for the integer ``atomicAdd``, and a template for the
 ``<<<...>>>`` launches (blocks run one after another, in grid order). The
 library is bound with
@@ -39,10 +40,12 @@ SRC = os.path.join(
 )
 
 SHIM = r"""
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -62,24 +65,38 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local unsigned g_tid;  // the thread's linear index in its block
 inline dim3 gridDim, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
-inline int cudaGetLastError() { return 0; }
+constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaErrorInvalidConfiguration = 9;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline int g_last_error = 0;
+inline int cudaGetLastError() { const int e = g_last_error; g_last_error = 0; return e; }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
+// The dynamic limit asked for is not enforced; the card's per-block maximum is.
+template <class K>
+int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+// Rounded f32 operations; the library is built with -ffp-contract=off.
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline void sincos(double x, double* s, double* c) { *s = std::sin(x); *c = std::cos(x); }
+constexpr size_t kSharedBytes = 232448;  // the H100's dynamic shared memory per block
+alignas(16) inline unsigned char g_dyn_smem[kSharedBytes];
 inline std::barrier<>* g_block;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warps;
 inline double g_lanes[1024];  // holds a float exactly
 inline void __syncthreads() { g_block->arrive_and_wait(); }
-inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncwarp() { g_warps[g_tid / 32]->arrive_and_wait(); }
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int o) {
-  g_lanes[threadIdx.x] = v;
+  g_lanes[g_tid] = v;
   __syncwarp();
-  const T r = (T)g_lanes[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)];
+  const T r = (T)g_lanes[(g_tid & ~31u) | ((g_tid & 31u) ^ (unsigned)o)];
   __syncwarp();
   return r;
 }
@@ -89,58 +106,80 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 }
 inline double __ldcg(const double* p) { return *p; }
 template <class K, class... A>
-void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+  const unsigned n = block.x * block.y * block.z;
+  if (smem > kSharedBytes || n < 1 || n > 1024) {  // the card refuses such a launch
+    g_last_error = cudaErrorInvalidConfiguration;
+    return;
+  }
   gridDim = grid;
   blockDim = block;
-  for (unsigned by = 0; by < grid.y; ++by) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(block.x);
-      g_block = &bar;
-      g_warps.clear();
-      for (unsigned w = 0; w < block.x / 32; ++w) g_warps.emplace_back(new std::barrier<>(32));
-      std::vector<std::thread> threads;
-      for (unsigned t = 0; t < block.x; ++t) {
-        threads.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          kernel(args...);
-          g_block->arrive_and_drop();  // a finished thread leaves every barrier
-          g_warps[t / 32]->arrive_and_drop();
-        });
+  for (unsigned bz = 0; bz < grid.z; ++bz) {
+    for (unsigned by = 0; by < grid.y; ++by) {
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::memset(g_dyn_smem, 0xff, smem);  // NaN: a read before any write shows
+        std::barrier<> bar(n);
+        g_block = &bar;
+        g_warps.clear();
+        for (unsigned w = 0; w < n; w += 32)
+          g_warps.emplace_back(new std::barrier<>(std::min(32u, n - w)));
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < n; ++t) {
+          threads.emplace_back([&, t] {
+            g_tid = t;
+            threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
+            blockIdx = dim3(bx, by, bz);
+            kernel(args...);
+            g_block->arrive_and_drop();  // a finished thread leaves every barrier
+            g_warps[t / 32]->arrive_and_drop();
+          });
+        }
+        for (auto& th : threads) th.join();
       }
-      for (auto& th : threads) th.join();
     }
   }
 }
 """
 
 
-def _emulated_source():
-    with open(SRC) as f:
+def emulated_source(path):
+    """The CUDA source at ``path`` rewritten for the shim: dynamic shared
+    memory is the shim's buffer, static shared memory a function-local
+    static, and ``kernel<<<grid, block, smem, stream>>>(...)`` a call of
+    ``emu_launch``."""
+    with open(path) as f:
         src = f.read()
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];", r"static \1 \2[16384];", src)
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* const \2 = reinterpret_cast<\1*>(g_dyn_smem);", src)
     src = src.replace("__shared__", "static")
-    return re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", src, flags=re.S)
+    return re.sub(r"([\w:]+(?:<[^<>()]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", src,
+                  flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_emulated(path, out_dir, flags=()):
+    """Compile ``path`` against the shim into a shared library in
+    ``out_dir``; returns its ctypes handle. Skips where no C++20 compiler
+    is installed."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++20 compiler for the CPU emulation of the CUDA source")
-    d = tmp_path_factory.mktemp("ba_kernels_emulated")
-    (d / "shim.h").write_text(SHIM)
-    (d / "emu.cpp").write_text(_emulated_source())
-    out = d / "libba_emulated.so"
+    (out_dir / "shim.h").write_text(SHIM)
+    (out_dir / "emu.cpp").write_text(emulated_source(path))
+    out = out_dir / "libemulated.so"
     proc = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", str(out),
-         str(d / "emu.cpp")], capture_output=True, text=True, timeout=300, check=False,
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *flags, "-o", str(out),
+         str(out_dir / "emu.cpp")], capture_output=True, text=True, timeout=300, check=False,
     )
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("the C++ compiler has no <barrier> (C++20)")
     assert proc.returncode == 0, proc.stderr
-    return ba_cuda.bind(ctypes.CDLL(str(out)))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return ba_cuda.bind(build_emulated(SRC, tmp_path_factory.mktemp("ba_kernels_emulated")))
 
 
 def _rig(**kwargs):

@@ -133,7 +133,7 @@ def test_wrappers_run_twins_on_cpu_and_count_no_launch():
     assert r64.dtype == torch.float32 and torch.equal(r64, resp) and torch.equal(p64, peak)
     # The launch path refuses a CPU tensor instead of running the twin.
     with pytest.raises(ValueError, match="CUDA tensor"):
-        corner_cuda._launch(g, 1.5, NMS, True, "corner_peaks_kernel")
+        corner_cuda._on_card(g, 1.5, NMS, True, "corner_peaks_kernel")
 
 
 def test_gaussian_taps_match_pallas_taps():

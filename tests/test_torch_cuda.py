@@ -274,7 +274,7 @@ def test_lm_solve_through_kernels_matches_plain(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sigma", [1.5, 3.5, 6.0, 9.0])
+@pytest.mark.parametrize("sigma", [1.5, 2.0, 3.5, 6.0, 9.0])  # 2.0: the runtime radius
 @pytest.mark.parametrize("shape", [(3, 130, 131), (2, 480, 640), (1, 37, 300)])
 def test_corner_kernel_matches_twin(device, shape, sigma):
     gray = torch.rand(shape, generator=torch.Generator(device=device).manual_seed(1),
@@ -288,6 +288,8 @@ def test_corner_kernel_matches_twin(device, shape, sigma):
     assert peak.dtype == torch.bool and resp.dtype == torch.float32
     assert torch.equal(resp, resp_t) and torch.equal(peak, peak_t)
     assert torch.equal(resp_f, resp_t)
+    again, peak2 = corner_cuda.corner_response_peaks(gray, sigma, 4)  # a relaunch: the same bits
+    assert torch.equal(again, resp) and torch.equal(peak2, peak)
 
 
 @pytest.mark.cuda
