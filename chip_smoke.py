@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full size. Schur-LM bundle adjustment
+Drives the port's paths at full size. Schur-LM bundle adjustment
 (``lm_solve``) on the bench problem: 6 cameras x 922 frames x 35 board
 points, the frames of BASELINE_PROBLEM.npz and the start of
 ``multicam_calibration_tpu_torch/data/bench_x0.npz``, with the bench's
@@ -11,8 +11,9 @@ options (bench.py:126-137). Chessboard detection
 (``detect_chessboard_batch``) on 480x640 frames of a 5x7 board at batch 128,
 the detection bench's configuration (scripts/bench_detection.py:23-25,
 158-188), from the frames and JAX answers of
-``multicam_calibration_tpu_torch/data/detect_frames.npz``. Phases, one line
-each:
+``multicam_calibration_tpu_torch/data/detect_frames.npz``. The calibration
+pipeline (``calibrate`` -> ``bundle_adjust``) on the bench rig. Phases, one
+line each:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``multicam_calibration_tpu_torch/csrc``, one
@@ -46,7 +47,42 @@ each:
 9. the full-width timed run: batch 128 (the clean frames tiled, with seeded
    +-2 noise as the detection bench), >= 10 timed calls after a warm-up,
    frames/s, detection rate 1.0, RMS corner error < 0.6 px, exactly one
-   kernel launch per call; then one call of the public ``corner_response``.
+   kernel launch per call; then one call of the public ``corner_response``;
+10. the calibration pipeline's first stage on the bench rig (6 cameras x
+   1000 frames, seed 11, noise 0.3 px, dropout 0.25,
+   ``n_samples_for_intrinsics=50``, bench.py:71-81): the port's
+   ``calibrate`` against the JAX package's own (``data/bench_x0.npz`` and
+   ``data/bench_ba_ref.npz``, from ``scripts/export_torch_bench_x0.py`` and
+   ``scripts/export_torch_bench_ba.py``), by ``start_gates``, as the CPU test
+   tests/test_torch_initialize.py does: the same spanning tree, every
+   intrinsic within 1e-6 relative; extrinsics and the bench frames' poses
+   equal to JAX's (1e-6) except where the JAX package's own planar
+   Gauss-Newton is chaotic (``pose_unstable``: its pose moves when the
+   detections are scaled by 1 + 1e-15) and what such poses feed, those
+   extrinsics within 2e-3 rad and 10 mm; the poses equal at the median
+   frame; the bench problem's cost at the port's start within 1.5e-3 of
+   the cost at JAX's; wall median of 5 calls after a warm-up, with each
+   stage's share;
+11. ``bundle_adjust`` with default options (the f32 recipe on CUDA, both
+   kernels, the f64 polish on the card, pose repair on). Every call: RMSE <
+   0.43 px, its f64 cost on its frames at most (1 + 1e-5) x the cost there
+   at JAX's adjusted result (data/bench_ba_ref.npz; the port's poses on
+   frames JAX did not select), which bounds the minimum from above, and
+   kernel launches equal to what the solves it ran account for (block
+   launches = ``n_iters`` x frame slabs of each solve on the kernel route,
+   cost launches = their ``nfev``, + 1 after a pose repair). The main path
+   runs from phase 10's outputs: the frames it selects equal to JAX's but
+   for frames within 1% of the outlier threshold at JAX's start; both
+   kernels against their twins at its mixed solve's start (all its frames,
+   and the last 256-frame slab of the chunked layout); wall median of 5
+   calls after a warm-up. From JAX's own ``calibrate`` outputs (the same
+   start as the JAX run): ``use_frames`` equal to JAX's, final cost <=
+   JAX's x (1 + 1e-5), under ``torch.profiler`` ``ba_blocks_kernel`` /
+   ``ba_cost_kernel`` launches equal to those counts, the kernels against
+   their twins at that start; for the record with ``frame_chunk=256`` and
+   on the plain path, each under the same gates, and the mixed solve's
+   own final cost (before the polish) of the kernel and chunked routes
+   within 1e-5 of the plain route's.
 
 Then one JSON line describing each kernel, with its bound on this card
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -69,6 +105,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCIPY_TRF_COST = 12338.04  # BASELINE_MEASURED.json: the bench's quality gate
+DATA = os.path.join(HERE, "multicam_calibration_tpu_torch", "data")
+# The bench rig (bench.py:71-81).
+RIG = dict(n_cameras=6, n_frames=1000, noise_px=0.3, dropout=0.25, seed=11)
+N_SAMPLES_FOR_INTRINSICS = 50
+# Phase 10's tolerances against the JAX package's calibrate
+# (tests/test_torch_initialize.py::test_calibrate_reproduces_the_bench_start).
+# SAME_ABS: an extrinsic, a pose "equal to JAX's" (rad, mm; see start_gates).
+INTRINSICS_RTOL, EXT_ROT_RAD, EXT_TRANS_MM, SAME_ABS, X0_COST_RTOL = (
+    1e-6, 2e-3, 10.0, 1e-6, 1.5e-3)
+BA_COST_RTOL, BA_RMSE_PX, SELECT_MARGIN = 1e-5, 0.43, 0.01  # phase 11's gates
+CHUNK = 256  # phase 11's frame_chunk
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ba_blocks_kernel": ("multicam_calibration_tpu_torch/csrc/ba_kernels.cu",
                          "multicam_calibration_tpu/ops/ba_pallas.py:253"),
@@ -425,6 +472,323 @@ def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
         f"call {n_launch[0]}; public corner_response: 1 launch")
 
 
+def timed(torch, fn):
+    """(fn(), host seconds) from a synchronised start to a synchronised end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def walls_text(walls):
+    return (f"median {statistics.median(walls):.4f} s (runs "
+            + ", ".join(f"{w:.4f}" for w in walls) + ")")
+
+
+def stage_text(stage_times, calls):
+    """Mean seconds per call of each metrics stage timer."""
+    return ", ".join(f"{k} {v / calls:.4f}" for k, v in stage_times.items())
+
+
+def unstable_cameras(tree, unstable):
+    """Cameras whose extrinsics may differ from JAX's: one with a camera-frame
+    in ``unstable`` (JAX's ``pose_unstable``, (C, F)), one whose tree parent
+    has one (their pairwise median may take it), and their descendants."""
+    bad = set(np.nonzero(unstable.any(1))[0].tolist())
+    out = set()
+    for parent, child in tree:  # parents come first
+        if parent in out or parent in bad or child in bad:
+            out.add(child)
+    return out
+
+
+def start_gates(torch, dev, rig, cal, ref, x0):
+    """Phase 10's gates on ``calibrate``'s outputs against the JAX package's
+    (``ref``: data/bench_ba_ref.npz, ``x0``: data/bench_x0.npz), the same on
+    the card and in the CPU test. Returns what they measured.
+
+    The undamped planar Gauss-Newton leaves its basin, or lands in another
+    one, on the camera-frames of ``ref["pose_unstable"]`` (JAX against itself
+    with the detections scaled by 1 + 1e-15); there no two implementations
+    return the same pose, and the extrinsics and consensus medians that take
+    such a pose move. So: the same tree; every intrinsic within
+    INTRINSICS_RTOL; extrinsics equal (SAME_ABS) but for cameras that
+    :func:`unstable_cameras` allows, and those within EXT_ROT_RAD /
+    EXT_TRANS_MM; the bench frames' poses equal (SAME_ABS) but for frames
+    seen by a camera whose extrinsics moved or holding an unstable
+    camera-frame, and equal at the median frame; the bench problem's cost
+    at the port's start within X0_COST_RTOL of the cost at JAX's."""
+    from multicam_calibration_tpu_torch.models import lm_core
+    from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
+
+    ext, intr, poses, tree = cal
+    check([tuple(e) for e in ref["tree"].tolist()] == list(tree),
+          f"spanning tree {tree} != JAX's {ref['tree'].tolist()}")
+    cam0, jcam = _params_to_arrays(ext, intr), x0["cam0"]
+    intr_rel = float((np.abs(cam0[:, :6] - jcam[:, :6]) / np.abs(jcam[:, :6])).max())
+    check(intr_rel <= INTRINSICS_RTOL, f"intrinsics differ from JAX's by {intr_rel:.3e} relative")
+    ext_err = np.abs(cam0[:, 6:] - jcam[:, 6:])
+    rot, trans = float(ext_err[:, :3].max()), float(ext_err[:, 3:].max())
+    check(rot <= EXT_ROT_RAD and trans <= EXT_TRANS_MM,
+          f"extrinsics differ from JAX's by {rot:.3e} rad, {trans:.3e} mm")
+    moved = np.nonzero(ext_err.max(-1) > SAME_ABS)[0]
+    allowed = unstable_cameras(tree, ref["pose_unstable"])
+    check(set(moved.tolist()) <= allowed, f"extrinsics of cameras {moved.tolist()} differ from "
+          f"JAX's; only {sorted(allowed)} take unstable poses")
+    uf = x0["use_frames"]
+    pose_err = np.abs(np.nan_to_num(poses[uf]) - x0["poses0"]).max(-1)
+    seen = ~np.isnan(rig.all_calib_uvs[:, uf]).any((-1, -2))  # (C, F) fully detected
+    explained = seen[moved].any(0) | (seen & ref["pose_unstable"][:, uf]).any(0)
+    differ = pose_err > SAME_ABS
+    stray = np.nonzero(differ & ~explained)[0]
+    check(not len(stray), f"bench frames {uf[stray].tolist()} differ from JAX's poses by "
+          f"{pose_err[stray].max(initial=0.0):.3e}, seen by no moved camera nor unstable pose")
+    check(float(np.median(pose_err)) <= SAME_ABS,
+          f"median pose difference {np.median(pose_err):.3e}")
+    obs_np = rig.all_calib_uvs[:, uf]
+    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    problem = (as_t(np.nan_to_num(obs_np)), as_t(~np.isnan(obs_np).any(-1)),
+               as_t(rig.calib_objpoints))
+    cost_at = lambda cam, p: float(lm_core.compute_cost(  # noqa: E731
+        as_t(cam), as_t(p), *problem, lm_core.LMOptions()))
+    c_port, c_jax = cost_at(cam0, np.nan_to_num(poses[uf])), cost_at(jcam, x0["poses0"])
+    check(abs(c_port - c_jax) <= X0_COST_RTOL * c_jax,
+          f"cost at the port's start {c_port} vs JAX's {c_jax}")
+    return dict(intr_rel=intr_rel, rot=rot, trans=trans, moved=moved.tolist(),
+                allowed=sorted(allowed), pose_err=pose_err, differ=int(differ.sum()),
+                explained=int(explained.sum()), frames=len(uf), c_port=c_port, c_jax=c_jax)
+
+
+def calibrate_phase(torch, dev):
+    """Phase 10: the port's calibrate on the bench rig against JAX's."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    ref = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+    x0 = np.load(os.path.join(DATA, "bench_x0.npz"))
+    rig = mct.make_synthetic_rig(**RIG)
+    call = lambda: mct.calibrate(  # noqa: E731
+        rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints, verbose=False,
+        n_samples_for_intrinsics=N_SAMPLES_FOR_INTRINSICS, device=dev)
+    out, warm = timed(torch, call)
+    metrics.stage_times.clear()
+    walls = [timed(torch, call)[1] for _ in range(5)]
+    stages = stage_text(metrics.stage_times, len(walls))
+    g = start_gates(torch, dev, rig, out, ref, x0)
+    pe = g["pose_err"]
+    log("10 calibrate", f"{RIG['n_cameras']} x {RIG['n_frames']} x {rig.calib_objpoints.shape[0]}, "
+        f"n_samples_for_intrinsics {N_SAMPLES_FOR_INTRINSICS}: tree {out[3]} as JAX; intrinsics "
+        f"max rel diff {g['intr_rel']:.3e}; extrinsics max |diff| {g['rot']:.3e} rad, "
+        f"{g['trans']:.3e} mm, cameras off JAX's {g['moved']} (allowed {g['allowed']}: "
+        f"{int(ref['pose_unstable'].sum())} unstable camera-frames in JAX); poses at the "
+        f"{g['frames']} bench frames: {g['differ']} differ (all among the {g['explained']} seen by "
+        f"a moved camera or holding an unstable pose), median max|diff| {np.median(pe):.3e}, 90th "
+        f"percentile {np.percentile(pe, 90):.3e}, max {pe.max():.3e}; bench cost at the start "
+        f"{g['c_port']:.4f} vs JAX's {g['c_jax']:.4f} (rel "
+        f"{(g['c_port'] - g['c_jax']) / g['c_jax']:+.2e}); wall " + walls_text(walls)
+        + f", warm-up {warm:.4f} s; stages per call: {stages}")
+    return rig, out
+
+
+def selection_ratios(torch, dev, rig, ext, intr, poses):
+    """select_ba_frames' statistic at a start: {frame: worst per-camera mean
+    reprojection error / outlier threshold} over the >= 2-camera frames."""
+    import warnings
+
+    import multicam_calibration_tpu_torch as mct
+
+    uvs = rig.all_calib_uvs
+    use = np.nonzero((~np.isnan(uvs).any((-1, -2))).sum(0) > 1)[0]
+    pred = mct.predict_calib_uvs(ext, intr, rig.calib_objpoints, np.asarray(poses)[use],
+                                 device=dev).cpu().numpy()
+    err = np.linalg.norm(uvs[:, use] - pred, axis=-1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", category=RuntimeWarning)
+        worst = np.nan_to_num(np.nanmax(np.nanmean(err, axis=-1), axis=0))
+        thresh = 5 * np.nanmedian(err)
+    return dict(zip(use.tolist(), (worst / thresh).tolist()))
+
+
+def hold_kernels_at(torch, start, opts, errs):
+    """Both BA kernels against their twins at a solve's own start (cam,
+    poses, obs, mask, objp): over all its frames and on the last frame slab
+    of CHUNK (zero-pose padded) as the chunked layout cuts it, at phase 3's
+    tolerances. Returns a text for the log."""
+    from multicam_calibration_tpu_torch.models import lm_core
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+
+    cam, poses, obs, mask, objp = start
+    cam64, pose64, objp64 = lm_core._kernel_params(cam, poses, objp)
+    chunked = dataclasses.replace(opts, frame_chunk=CHUNK)
+    prepared = lm_core._prepare(obs, mask, chunked)
+    chunk, pad, _ = lm_core._chunking(chunked, pose64.shape[0])
+    last = lm_core._pad_frames(pose64, 0, pad)[-chunk:].contiguous()
+    kw = dict(f_scale=opts.f_scale, loss_linear=opts.loss == "linear")
+    shapes = {f"F={pose64.shape[0]}": (cam64, pose64, prepared.obs, prepared.msk, objp64),
+              f"last slab of {chunk} ({pad} padded)": (cam64, last, *prepared.slabs[-1], objp64)}
+    out = []
+    for what, args in shapes.items():
+        err, scaled = compare_blocks(ba_cuda.ba_chunk_blocks(*args, **kw),
+                                     ba_cuda.ba_chunk_blocks_reference(*args, **kw))
+        cerr, trel = compare_cost(ba_cuda.ba_chunk_cost(*args, **kw),
+                                  ba_cuda.ba_chunk_cost_reference(*args, **kw),
+                                  ba_cuda.ba_chunk_cost(*args, **kw))
+        errs["ba_blocks_kernel"] = max(errs["ba_blocks_kernel"], err)
+        errs["ba_cost_kernel"] = max(errs["ba_cost_kernel"], cerr)
+        out.append(f"{what}: blocks max|err| {err:.3e} (worst err/tol "
+                   f"{max(scaled.values()):.2e}), cost fragments max|err| {cerr:.3e}, total rel "
+                   f"{trel:.1e}")
+    return "; ".join(out)
+
+
+def bundle_adjust_phase(torch, dev, cal, errs):
+    """Phase 11: the port's bundle_adjust, from phase 10's outputs (the main
+    path) and from JAX's calibrate outputs (the same start as JAX's run)."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.models import bundle_adjustment, lm_core
+    from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    rig, (ext, intr, poses, _) = cal
+    ref = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+    jax_start = (ref["ext"], list(zip(ref["K"], ref["dist"])), ref["poses"])
+    jax_cam = _params_to_arrays(ref["adj_ext"], list(zip(ref["adj_K"], ref["adj_dist"])))
+    jax_poses = dict(zip(ref["use_frames"].tolist(), ref["adj_poses"]))
+    objp = torch.as_tensor(rig.calib_objpoints, device=dev)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    solves = []  # (the five arrays, options, info) of every lm_solve a call runs
+    lm_solve = bundle_adjustment.lm_solve
+
+    def recording_lm_solve(*args, **kwargs):
+        out = lm_solve(*args, **kwargs)
+        solves.append((args[:5], args[5], out[2]))
+        return out
+
+    def f64_costs(uf, a_ext, a_intr, a_poses):
+        """bundle_adjust's f64 cost on ``uf`` at the port's result and at
+        JAX's (its cameras, its poses; the port's on frames it did not
+        select): JAX's point bounds the port's minimum from above."""
+        obs_np = rig.all_calib_uvs[:, uf]
+        problem = (as_t(np.nan_to_num(obs_np)), as_t(~np.isnan(obs_np).any(-1)), objp)
+        opts = lm_core.LMOptions(ftol=1e-4, loss="soft_l1", f_scale=1.0)
+        q = np.stack([jax_poses.get(f, p) for f, p in zip(uf.tolist(), a_poses)])
+        return [float(lm_core.compute_cost(as_t(c), as_t(p), *problem, opts))
+                for c, p in ((_params_to_arrays(a_ext, a_intr), a_poses), (jax_cam, q))]
+
+    def run(start, **kw):
+        """One bundle_adjust, checked: its wrapper calls equal what the
+        solves it ran account for, RMSE < BA_RMSE_PX, and its f64 cost at
+        most JAX's point's on its frames x (1 + BA_COST_RTOL)."""
+        solves.clear()
+        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        s_ext, s_intr, s_poses = start
+        (a_ext, a_intr, a_poses, uf, info), wall = timed(torch, lambda: mct.bundle_adjust(
+            rig.all_calib_uvs, s_ext, s_intr, rig.calib_objpoints, s_poses, verbose=False,
+            device=dev, **kw))
+        nb = ba_cuda.ba_chunk_blocks.launches - before[0]
+        nc = ba_cuda.ba_chunk_cost.launches - before[1]
+        eb = ec = 0
+        for k, (_, o, sinfo) in enumerate(solves):
+            if lm_core._cuda_block_build(o, torch.float64, objp):
+                chunking = lm_core._chunking(o, len(uf))
+                eb += sinfo["n_iters"] * (1 if chunking is None else chunking[2])
+            if lm_core._cuda_cost_eval(o, torch.float64, objp):
+                # + the cost evaluation after a pose repair (mixed options)
+                ec += sinfo["nfev"] + int(k == 0 and "n_poses_repaired" in info)
+        mixed = solves[0][2] if solves else {}
+        check(bool(solves) and int(info["n_iters"]) == mixed["n_iters"]
+              and int(info["nfev"]) == mixed["nfev"], "info is not the mixed solve's")
+        check((nb, nc) == (eb, ec), f"wrapper calls blocks {nb}, cost {nc}; the solves "
+              f"account for {eb}, {ec}")
+        pred = mct.predict_calib_uvs(a_ext, a_intr, rig.calib_objpoints, a_poses,
+                                     device=dev).cpu().numpy()
+        err = np.linalg.norm(rig.all_calib_uvs[:, uf] - pred, axis=-1)
+        rmse = float(np.sqrt(np.nanmean(err**2)))
+        check(rmse < BA_RMSE_PX, f"RMSE {rmse:.4f} px")
+        cost, at_jax = f64_costs(uf, a_ext, a_intr, a_poses)
+        check(cost <= at_jax * (1 + BA_COST_RTOL),
+              f"f64 cost {cost} above JAX's result's {at_jax} on the same frames")
+        return SimpleNamespace(uf=uf, info=info, rmse=rmse, wall=wall, nb=nb, nc=nc,
+                               mixed_cost=float(mixed["final_cost"]), start=solves[0][0],
+                               opts=solves[0][1], cost=cost, at_jax=at_jax)
+
+    def describe(r):
+        extra = ", ".join(f"{k} {int(r.info[k])}" for k in ("polish_iters", "n_poses_repaired")
+                          if k in r.info)
+        return (f"{len(r.uf)} frames, n_iters {int(r.info['n_iters'])} nfev "
+                f"{int(r.info['nfev'])} ({extra}), mixed solve's own final cost "
+                f"{r.mixed_cost:.4f}, final cost {float(r.info['final_cost']):.4f} (JAX "
+                f"{float(ref['final_cost']):.4f} on its {len(ref['use_frames'])} frames), f64 "
+                f"cost {r.cost:.4f} vs {r.at_jax:.4f} at JAX's result on these frames (rel "
+                f"{(r.cost - r.at_jax) / r.at_jax:+.2e}), RMSE {r.rmse:.4f} px, block calls "
+                f"{r.nb} cost calls {r.nc}")
+
+    def same_as_jax(r, label):
+        check(np.array_equal(r.uf, ref["use_frames"]), f"{label}: use_frames differ from JAX's")
+        cost, jcost = float(r.info["final_cost"]), float(ref["final_cost"])
+        check(cost <= jcost * (1 + BA_COST_RTOL), f"{label}: final cost {cost} above JAX's {jcost}")
+
+    bundle_adjustment.lm_solve = recording_lm_solve
+    try:
+        port_start = (ext, intr, poses)
+        run(port_start)  # warm-up
+        # The main path: counts from 0, read just after.
+        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        main = run(port_start)
+        check(ba_cuda.ba_chunk_blocks.launches > 0 and ba_cuda.ba_chunk_cost.launches > 0,
+              "bundle_adjust did not launch both BA kernels")
+        held = hold_kernels_at(torch, main.start, main.opts, errs)
+        ratios = selection_ratios(torch, dev, rig, *jax_start)
+        differ = sorted(set(main.uf.tolist()) ^ set(ref["use_frames"].tolist()))
+        far = [f for f in differ if abs(ratios[f] - 1.0) > SELECT_MARGIN]
+        check(not far, f"frames {far} selected differently from JAX, not near its threshold")
+        metrics.stage_times.clear()
+        timed_main = [run(port_start) for _ in range(5)]
+        stages = stage_text(metrics.stage_times, len(timed_main))
+        log("11 bundle_adjust", "from phase 10's start, default options: " + describe(main)
+            + f"; frames selected unlike JAX: {differ} (worst error / threshold at JAX's start "
+            + ", ".join(f"{ratios[f]:.4f}" for f in differ) + "); wall "
+            + walls_text([r.wall for r in timed_main]) + f"; stages per call: {stages}; "
+            "kernels vs twins at the mixed solve's start, " + held)
+
+        variants = {"kernel": {}, "frame_chunk=256": {"lm_options": {"frame_chunk": CHUNK}},
+                    "plain": {"lm_options": {"cost_impl": "torch", "block_impl": "torch"}}}
+        runs = {}
+        for label, kw in variants.items():
+            rs = runs[label] = [run(jax_start, **kw) for _ in range(3 if label == "kernel" else 2)]
+            for r in rs:
+                same_as_jax(r, label)
+            extra = ""
+            if label == "kernel":
+                check(rs[-1].nb > 0 and rs[-1].nc > 0, "kernels not launched")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    r = run(jax_start)
+                names = [re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                nk = (names.count("ba_blocks_kernel"), names.count("ba_cost_kernel"))
+                check(nk == (r.nb, r.nc), f"profiler: kernel launches {nk}, wrapper calls "
+                      f"{r.nb}, {r.nc}")
+                extra = (f"; under torch.profiler ba_blocks_kernel {nk[0]}, ba_cost_kernel "
+                         f"{nk[1]} launches; kernels vs twins at the mixed solve's start, "
+                         + hold_kernels_at(torch, rs[-1].start, rs[-1].opts, errs))
+            log(f"11 bundle_adjust {label}", "from JAX's start, use_frames as JAX's: "
+                + describe(rs[-1]) + "; wall " + walls_text([r.wall for r in rs]) + extra)
+        plain = runs["plain"][-1].mixed_cost
+        for label in ("kernel", "frame_chunk=256"):
+            mixed = runs[label][-1].mixed_cost
+            check(abs(mixed - plain) <= BA_COST_RTOL * plain,
+                  f"{label}: the mixed solve's own final cost {mixed} vs the plain route's {plain}")
+    finally:
+        bundle_adjustment.lm_solve = lm_solve
+
+
 def main():
     import torch
 
@@ -595,6 +959,8 @@ def main():
     log("5 bench plain", "block_impl=torch cost_impl=torch: " + summary(runs["plain"]))
 
     detect_phases(torch, dev, builds["corner_kernels"], launches, errs, times, bounds)
+    cal = calibrate_phase(torch, dev)
+    bundle_adjust_phase(torch, dev, cal, errs)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -3,10 +3,15 @@
 The same module layout and public names as the JAX package, written in
 PyTorch for one NVIDIA GPU (Hopper, sm_90a), with the JAX package's Pallas
 TPU kernels replaced by hand-written CUDA kernels (``csrc/``). It imports
-neither JAX nor the JAX package. Ported so far: the Schur-LM
-bundle-adjustment path (``models.lm_core``) with its geometry ops, the
-synthetic rig and the parameter helpers, and full-resolution chessboard
-detection (``detection.detector``); see ROADMAP.md for the rest.
+neither JAX nor the JAX package. Ported so far: the calibration pipeline
+(``models.initialize.calibrate`` -> ``models.bundle_adjustment.bundle_adjust``
+over the Schur-LM engine ``models.lm_core``) with its geometry ops and
+masked reductions, the synthetic rig, the stage metrics
+(``utils.metrics``), and full-resolution chessboard detection
+(``detection.detector``); see ROADMAP.md for the rest.
+
+Entry points take numpy input and run on the CUDA device unless the caller
+passes ``device="cpu"`` (or CPU tensors).
 """
 
 from .ops import *  # noqa: F401,F403
@@ -19,16 +24,44 @@ from .detection import (
     generate_chessboard_objpoints,
     refine_corners_subpix,
 )
+from .models.initialize import (
+    calibrate,
+    consensus_calib_poses,
+    estimate_all_extrinsics,
+    estimate_pairwise_camera_transform,
+    estimate_pose,
+    estimate_pose_batch,
+    get_camera_spanning_tree,
+    get_intrinsics,
+    get_intrinsics_batch,
+)
 from .models.bundle_adjustment import (
+    bundle_adjust,
+    bundle_adjustment_sparsity,
     deserialize_params,
     embed_calib_objpoints,
     predict_calib_uvs,
+    residuals,
+    select_ba_frames,
     serialize_params,
 )
 from .models.lm_core import LMOptions, lm_solve
 from .synthetic import make_synthetic_rig
 
 __all__ = list(_ops_all) + [
+    "calibrate",
+    "consensus_calib_poses",
+    "estimate_all_extrinsics",
+    "estimate_pairwise_camera_transform",
+    "estimate_pose",
+    "estimate_pose_batch",
+    "get_camera_spanning_tree",
+    "get_intrinsics",
+    "get_intrinsics_batch",
+    "bundle_adjust",
+    "bundle_adjustment_sparsity",
+    "residuals",
+    "select_ba_frames",
     "generate_chessboard_objpoints",
     "corner_response",
     "detect_chessboard",

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-__all__ = ["cuda_device", "with_highest_precision"]
+__all__ = ["cuda_device", "resolve_device", "with_highest_precision"]
 
 
 def with_highest_precision(fn):
@@ -53,3 +53,10 @@ def cuda_device(index: int = 0) -> torch.device:
             f"CUDA device {index} requested, {torch.cuda.device_count()} present"
         )
     return torch.device("cuda", index)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means :func:`cuda_device` (and
+    raises without one). Entry points that take numpy input use this, so
+    the CPU runs only when the caller asks for it."""
+    return cuda_device() if device is None else torch.device(device)

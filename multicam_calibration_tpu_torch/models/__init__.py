@@ -1,2 +1,3 @@
-"""Model layer: the Schur-LM engine (``lm_core``) and the bundle-adjustment
-parameter helpers (``bundle_adjustment``)."""
+"""Model layer: the Schur-LM engine (``lm_core``), calibration
+initialization (``initialize``) and bundle adjustment
+(``bundle_adjustment``)."""

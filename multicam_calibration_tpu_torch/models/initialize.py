@@ -1,0 +1,770 @@
+"""Calibration initialization: intrinsics, per-frame poses, extrinsics chain.
+
+Counterpart of ``multicam_calibration_tpu/models/initialize.py`` in eager
+PyTorch, with the JAX names:
+
+- ``get_intrinsics`` — Zhang's closed-form init (homographies -> image of
+  the absolute conic -> K) followed by a single-camera LM refine of
+  (fx, fy, cx, cy, k1, k2) + board poses with the Schur LM engine
+  (extrinsics frozen at identity), and a fixed-principal-point basin guard.
+- ``estimate_pose`` — batched planar-homography pose extraction, a
+  Gauss-Newton polish of every frame at once (``torch.func.jacfwd`` rows),
+  and the planar twin-pose check.
+- ``get_camera_spanning_tree`` / ``estimate_all_extrinsics`` /
+  ``consensus_calib_poses`` — the maximum spanning tree over co-detections
+  (host numpy), pairwise-transform medians chained along it, and the
+  per-frame median world pose across cameras (masked medians).
+- ``calibrate`` — the stage driver, with the JAX signature and returns.
+
+Entry points take numpy (or tensors) and run on ``device``: None means the
+CUDA device (raising without one) unless a tensor argument brings its own;
+pass ``device="cpu"`` for the CPU. Everything runs in f64. The single-camera
+intrinsics solves use ``LMOptions(max_iters=60, ftol=1e-6, loss="linear")``
+in f64, which is not the kernels' all-f32 recipe: they take lm_core's plain
+torch route on every device, as the JAX package's routing does
+(lm_core.py:390-430).
+
+``torch.linalg.svd``/``eigh`` raise on non-finite input where JAX returns
+NaN; the functions below that factor matrices from detections hand them
+finite stand-ins there and put NaN back in the result, so undetected frames
+come out NaN as in JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, with_highest_precision
+from ..ops.homography import fit_homography
+from ..ops.projection import distortion_valid_r2, undistort_points
+from ..ops.reductions import masked_median
+from ..ops.rotation import so3_exp, so3_log
+from ..ops.transforms import (
+    get_transformation_matrix,
+    get_transformation_vector,
+    se3_inverse,
+)
+from .lm_core import LMOptions, _cholesky, _predict, lm_solve, project_board_points
+
+__all__ = [
+    "estimate_board_homographies",
+    "intrinsics_from_homographies",
+    "intrinsics_from_homographies_fixed_pp",
+    "poses_from_homographies",
+    "get_intrinsics",
+    "get_intrinsics_batch",
+    "estimate_pose",
+    "estimate_pose_batch",
+    "estimate_pairwise_camera_transform",
+    "get_camera_spanning_tree",
+    "estimate_all_extrinsics",
+    "consensus_calib_poses",
+    "calibrate",
+]
+
+_F64 = torch.float64
+
+
+def _host(x):
+    """numpy of an array-like, scalar or tensor (tensors are copied to the
+    host)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _t(x, device):
+    """f64 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=_F64)
+    return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+
+def _finite_frames(M):
+    """(finite, M with non-finite matrices replaced by the identity) for a
+    batch of square matrices M (..., n, n)."""
+    ok = torch.isfinite(M).flatten(-2).all(-1)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(M.shape)
+    return ok, torch.where(ok[..., None, None], M, eye)
+
+
+def estimate_board_homographies(calib_uvs, objpoints, mask=None):
+    """Batched board-plane -> image homographies, one per frame.
+
+    ``calib_uvs``: (F, N, 2) tensor (NaN ok); ``objpoints``: (N, 3) with
+    z=0. Returns (Hs (F, 3, 3), valid (F,)).
+    """
+    if mask is None:
+        mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)
+    uvs = torch.nan_to_num(calib_uvs)
+    xy = objpoints[:, :2].expand(uvs.shape)
+    return fit_homography(xy, uvs), mask
+
+
+def intrinsics_from_homographies(Hs, valid, zero_skew=True):
+    """Zhang's closed-form camera matrix from >= 3 board homographies.
+
+    Each homography contributes two linear constraints on the image of the
+    absolute conic B = K^-T K^-1; K is recovered from B in closed form.
+    Invalid frames are weight-0 rows. The conic is the smallest eigenvector
+    of A^T A, its sign fixed by B11 > 0.
+    """
+
+    def v_ij(i, j):
+        H = Hs
+        return torch.stack(
+            [
+                H[:, 0, i] * H[:, 0, j],
+                H[:, 0, i] * H[:, 1, j] + H[:, 1, i] * H[:, 0, j],
+                H[:, 1, i] * H[:, 1, j],
+                H[:, 2, i] * H[:, 0, j] + H[:, 0, i] * H[:, 2, j],
+                H[:, 2, i] * H[:, 1, j] + H[:, 1, i] * H[:, 2, j],
+                H[:, 2, i] * H[:, 2, j],
+            ],
+            dim=-1,
+        )
+
+    A = torch.stack([v_ij(0, 1), v_ij(0, 0) - v_ij(1, 1)], dim=1)  # (F, 2, 6)
+    w = valid.to(Hs.dtype)[:, None, None]
+    A = (A * w).reshape(-1, 6)
+    if zero_skew:
+        # Strong prior row: B12 = 0 (zero skew), scaled to the data rows.
+        scale = torch.sqrt(torch.mean(torch.sum(A**2, dim=-1)) + 1e-30)
+        skew_row = torch.tensor(
+            [0.0, 1.0, 0.0, 0.0, 0.0, 0.0], dtype=Hs.dtype, device=Hs.device
+        ) * scale
+        A = torch.cat([A, skew_row[None]], dim=0)
+    ok, ATA = _finite_frames(A.T @ A)
+    _, vecs = torch.linalg.eigh(ATA)
+    b = torch.where(ok, vecs[:, 0], torch.nan)
+    b = b * torch.sign(b[0] + 1e-30)  # B11 > 0 for a valid conic
+    B11, B12, B22, B13, B23, B33 = b[0], b[1], b[2], b[3], b[4], b[5]
+    v0 = (B12 * B13 - B11 * B23) / (B11 * B22 - B12**2)
+    lam = B33 - (B13**2 + v0 * (B12 * B13 - B11 * B23)) / B11
+    alpha = torch.sqrt(torch.abs(lam / B11))
+    beta = torch.sqrt(torch.abs(lam * B11 / (B11 * B22 - B12**2)))
+    gamma = -B12 * alpha**2 * beta / lam
+    u0 = gamma * v0 / beta - B13 * alpha**2 / lam
+    zero, one = torch.zeros_like(alpha), torch.ones_like(alpha)
+    return torch.stack([
+        torch.stack([alpha, gamma, u0]),
+        torch.stack([zero, beta, v0]),
+        torch.stack([zero, zero, one]),
+    ])
+
+
+def intrinsics_from_homographies_fixed_pp(Hs, valid, image_size):
+    """Focal-only closed-form init with the principal point pinned at the
+    image center (cv2.initCameraMatrix2D's assumption).
+
+    Zhang's 5-dof estimate degenerates under weak view diversity; pinning
+    (cx, cy) and zero skew leaves X = 1/fx^2, Y = 1/fy^2, two linear
+    constraints per homography of H' = T(-center) @ H, solved as a 2x2
+    normal system by Cramer's rule with a 1e-12 ridge. The alternative LM
+    start of :func:`get_intrinsics`.
+    """
+    w, h = (float(v) for v in _host(image_size).reshape(-1)[:2])
+    cx = torch.tensor(w, dtype=Hs.dtype, device=Hs.device) / 2.0
+    cy = torch.tensor(h, dtype=Hs.dtype, device=Hs.device) / 2.0
+    T = torch.eye(3, dtype=Hs.dtype, device=Hs.device)
+    T[0, 2], T[1, 2] = -cx, -cy
+    Hc = torch.einsum("ij,fjk->fik", T, Hs)
+    a1, a2 = Hc[:, 0, 0], Hc[:, 0, 1]
+    b1, b2 = Hc[:, 1, 0], Hc[:, 1, 1]
+    c1, c2 = Hc[:, 2, 0], Hc[:, 2, 1]
+    # h1^T B h2 = 0 ; h1^T B h1 - h2^T B h2 = 0, B = diag(X, Y, 1)
+    A = torch.stack([
+        torch.stack([a1 * a2, b1 * b2], dim=-1),
+        torch.stack([a1 * a1 - a2 * a2, b1 * b1 - b2 * b2], dim=-1),
+    ], dim=-2)  # (F, 2, 2)
+    r = torch.stack([-c1 * c2, -(c1 * c1 - c2 * c2)], dim=-1)
+    wgt = valid.to(Hs.dtype)[:, None, None]
+    A = (A * wgt).reshape(-1, 2)
+    r = (r * wgt[..., 0]).reshape(-1)
+    ATA = A.T @ A + 1e-12 * torch.eye(2, dtype=Hs.dtype, device=Hs.device)
+    Ab = A.T @ r
+    det = ATA[0, 0] * ATA[1, 1] - ATA[0, 1] * ATA[1, 0]
+    XY = torch.stack([
+        ATA[1, 1] * Ab[0] - ATA[0, 1] * Ab[1],
+        ATA[0, 0] * Ab[1] - ATA[1, 0] * Ab[0],
+    ]) / det
+    fx = 1.0 / torch.sqrt(torch.clamp(XY[0], min=1e-12))
+    fy = 1.0 / torch.sqrt(torch.clamp(XY[1], min=1e-12))
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    return torch.stack([
+        torch.stack([fx, zero, cx]),
+        torch.stack([zero, fy, cy]),
+        torch.stack([zero, zero, one]),
+    ])
+
+
+def _intrinsics_field_valid(cam6, image_size):
+    """True when a refined (fx,fy,cx,cy,k1,k2) solution is physically
+    usable over its own image field: the radial model stays monotonic
+    (invertible) out to the farthest image corner (host-side)."""
+    vals = [float(v) for v in _host(cam6).reshape(-1)[:6]]
+    fx, fy, cx, cy, k1, k2 = vals
+    if not np.all(np.isfinite(vals)) or fx <= 0 or fy <= 0:
+        return False
+    w, h = float(image_size[0]), float(image_size[1])
+    r2_corner = max(
+        (x / fx) ** 2 for x in (cx, w - cx)
+    ) + max((y / fy) ** 2 for y in (cy, h - cy))
+    return distortion_valid_r2([k1, k2]) > r2_corner
+
+
+def poses_from_homographies(Hs, K):
+    """Planar pose extraction: H = K [r1 r2 t] (up to scale) -> (F, 6).
+
+    Orthonormalizes [r1 r2 r1xr2] by SVD (the det correction makes the
+    result independent of the SVD's signs) and flips the scale sign so the
+    board sits in front of the camera (t_z > 0). Non-finite H give NaN.
+    """
+    M = torch.linalg.solve_triangular(K.expand(Hs.shape), Hs, upper=True)
+    lam = 1.0 / torch.clamp(torch.linalg.vector_norm(M[:, :, 0], dim=-1), min=1e-30)
+    # Board must be in front of the camera: t_z > 0 fixes the sign.
+    lam = (lam * torch.sign(M[:, 2, 2] + 1e-30))[:, None]
+    r1 = M[:, :, 0] * lam
+    r2 = M[:, :, 1] * lam
+    t = M[:, :, 2] * lam
+    r3 = torch.linalg.cross(r1, r2, dim=-1)
+    ok, R_approx = _finite_frames(torch.stack([r1, r2, r3], dim=-1))
+    U, _, Vt = torch.linalg.svd(R_approx)
+    d = torch.linalg.det(U @ Vt)
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
+    R = U @ D @ Vt
+    out = torch.cat([so3_log(R), t], dim=-1)
+    return torch.where(ok[:, None], out, torch.nan)
+
+
+def _refine_poses_gn(poses, cam12, calib_uvs, mask, objpoints, n_iters=10):
+    """Batched per-frame 6-dof Gauss-Newton polish (replaces solvePnP's LM).
+
+    All frames refine at once: rows from ``torch.func.jacfwd`` of the
+    masked residual (vmapped over frames), a 1e-8 ridge and a Cholesky
+    solve per frame, ``n_iters`` fixed steps.
+    """
+    from torch.func import jacfwd, vmap
+
+    uvs = torch.nan_to_num(calib_uvs)
+    m = mask.to(poses.dtype)[..., None]
+
+    def residual(pose6, uvs_f, m_f):
+        pred = project_board_points(cam12, pose6, objpoints)
+        return ((uvs_f - pred) * m_f).reshape(-1)
+
+    res_fn = vmap(residual)
+    jac_fn = vmap(jacfwd(residual))
+    ridge = 1e-8 * torch.eye(6, dtype=poses.dtype, device=poses.device)
+    for _ in range(n_iters):
+        # J is d(residual)/d(pose) = -d(pred)/d(pose); the GN increment is
+        # -(J^T J)^{-1} J^T r.
+        r = res_fn(poses, uvs, m)
+        J = jac_fn(poses, uvs, m)
+        H = J.mT @ J + ridge
+        g = J.mT @ r[..., None]
+        L = _cholesky(H)
+        y = torch.linalg.solve_triangular(L, g, upper=False)
+        poses = poses - torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    return poses
+
+
+def _twin_planar_pose(pose6):
+    """The second solution of the planar-pose ambiguity (batched, (F, 6)).
+
+    Planar PnP has two local minima at shallow viewing angles: the board
+    normal n reflects across the line of sight v. The twin rotates the pose
+    so n -> 2(v.n)v - n.
+    """
+    R = so3_exp(pose6[..., :3])
+    t = pose6[..., 3:]
+    n = R[..., :, 2]  # board normal in camera frame
+    v = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+    dot = torch.sum(v * n, dim=-1, keepdim=True)
+    n2 = 2.0 * dot * v - n
+    # Rotation taking n -> n2 (about axis n x n2).
+    axis = torch.linalg.cross(n, n2, dim=-1)
+    sin = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    cos = torch.clamp(torch.sum(n * n2, dim=-1, keepdim=True), -1.0, 1.0)
+    angle = torch.atan2(sin, cos)
+    axis_unit = axis / torch.clamp(sin, min=1e-12)
+    r_align = torch.where(sin > 1e-8, axis_unit * angle, torch.zeros_like(axis))
+    R_twin = so3_exp(r_align) @ R
+    return torch.cat([so3_log(R_twin), t], dim=-1)
+
+
+def _cam12(K, dist):
+    """(12,) camera vector of intrinsics K, dist with identity extrinsics."""
+    return torch.cat([
+        torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]),
+        dist[:2],
+        torch.zeros(6, dtype=K.dtype, device=K.device),
+    ])
+
+
+@with_highest_precision
+def _estimate_pose_impl(calib_uvs, K, dist, objpoints):
+    mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)  # (F,)
+    und = undistort_points(calib_uvs, K, dist)
+    Hs, _ = estimate_board_homographies(und, objpoints, mask)
+    poses0 = poses_from_homographies(Hs, K)
+    poses0 = torch.where(mask[:, None], poses0, 0.0)
+    cam12 = _cam12(K, dist)
+    point_mask = mask[:, None].expand(calib_uvs.shape[:2])
+    # Polish both branches of the planar-pose ambiguity; keep the better.
+    poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
+    poses_b = _refine_poses_gn(
+        _twin_planar_pose(poses_a), cam12, calib_uvs, point_mask, objpoints
+    )
+
+    def sq_err(poses):
+        pred = _predict(cam12[None], poses, objpoints)[0]
+        r = torch.where(
+            point_mask[..., None], torch.nan_to_num(calib_uvs) - pred, 0.0
+        )
+        return torch.sum(r**2, dim=(-1, -2))
+
+    better_b = sq_err(poses_b) < sq_err(poses_a)
+    poses = torch.where(better_b[:, None], poses_b, poses_a)
+    return torch.where(mask[:, None], poses, torch.nan)
+
+
+def _pick(device, *xs):
+    """The device to run on: ``device`` if given, else that of the first
+    tensor argument, else the CUDA device (raises without one)."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+    return resolve_device(device)
+
+
+def estimate_pose(calib_uvs, calib_objpoints, camera_matrix, dist_coeffs,
+                  device=None):
+    """Board pose per frame for one camera: (F, 6) f64 tensor on the device,
+    NaN rows where the board is not fully detected.
+
+    Undistort -> planar homography pose -> GN polish against the full
+    distorted model (both planar twins), all frames at once. A frame
+    participates only if all N corners are detected.
+    """
+    dev = _pick(device, calib_uvs)
+    uvs = _t(calib_uvs, dev)
+    return _estimate_pose_impl(
+        uvs, _t(camera_matrix, dev), _t(dist_coeffs, dev).reshape(-1),
+        _t(calib_objpoints, dev),
+    )
+
+
+def estimate_pose_batch(all_calib_uvs, calib_objpoints, all_camera_matrices,
+                        all_dist_coeffs, device=None):
+    """Board poses for all cameras: (C, F, 6), camera by camera through
+    :func:`estimate_pose`'s program (the same per-camera results)."""
+    dev = _pick(device, all_calib_uvs)
+    return torch.stack([
+        estimate_pose(all_calib_uvs[c], calib_objpoints, all_camera_matrices[c],
+                      all_dist_coeffs[c], device=dev)
+        for c in range(len(all_camera_matrices))
+    ])
+
+
+def _sample_frames(calib_uvs, n_samples, seed, camera=None):
+    """(sample of fully-detected frame indices padded to n_samples, take)."""
+    valid_ixs = np.nonzero(~np.isnan(calib_uvs).any((1, 2)))[0]
+    if len(valid_ixs) < 3:
+        which = "" if camera is None else f" for camera {camera}"
+        raise ValueError(
+            f"get_intrinsics needs >= 3 fully-detected frames, got "
+            f"{len(valid_ixs)}{which} (Zhang's method requires 3+ board views)"
+        )
+    take = min(n_samples, len(valid_ixs))
+    rng = np.random.default_rng(seed)
+    sample = rng.choice(valid_ixs, take, replace=False)
+    # Pad the sample to a fixed size (padded frames are all-masked).
+    if take < n_samples:
+        sample = np.concatenate([sample, np.full(n_samples - take, sample[0])])
+    return sample, take
+
+
+@with_highest_precision
+def _intrinsics_from_sample(uvs, take, objpoints, image_size, opts):
+    """Zhang init + LM refine + basin guard on one camera's frame sample;
+    returns (camera_matrix, dist_coefs) as numpy."""
+    n_samples = uvs.shape[0]
+    dev = uvs.device
+    mask_f = torch.arange(n_samples, device=dev) < take
+    Hs, _ = estimate_board_homographies(uvs, objpoints, mask_f)
+    K0 = intrinsics_from_homographies(Hs, mask_f)
+
+    # Refine (fx, fy, cx, cy, k1, k2) + poses jointly with the BA engine:
+    # a single-camera bundle adjustment with the extrinsics frozen at
+    # identity (gauge: board poses absorb all motion).
+    cam_free = torch.cat([torch.ones(6, dtype=_F64, device=dev),
+                          torch.zeros(6, dtype=_F64, device=dev)])[None]
+    obs = uvs[None]
+    point_mask = mask_f[None, :, None].expand(obs.shape[:3])
+
+    def refine(K_init):
+        cam0 = torch.cat([
+            torch.stack([K_init[0, 0], K_init[1, 1], K_init[0, 2], K_init[1, 2]]),
+            torch.zeros(8, dtype=_F64, device=dev),
+        ])[None]
+        poses0 = poses_from_homographies(Hs, K_init)
+        cam_ref, _, info = lm_solve(
+            cam0, poses0, obs, point_mask, objpoints, opts, cam_free=cam_free
+        )
+        return _host(cam_ref), float(info["final_cost"])
+
+    cam_ref, cost = refine(K0)
+
+    # Basin guard: when the fixed-principal-point focal estimate materially
+    # disagrees with the IAC one, refine from it too and keep the better
+    # field-valid solution.
+    K0_pp = intrinsics_from_homographies_fixed_pp(Hs, mask_f, image_size)
+    k0, kp = _host(K0), _host(K0_pp)
+    with np.errstate(all="ignore"):
+        f_ratio = max(k0[0, 0] / kp[0, 0], kp[0, 0] / k0[0, 0])
+        pp_off = np.hypot(k0[0, 2] - kp[0, 2], k0[1, 2] - kp[1, 2]) / float(
+            np.hypot(*image_size)
+        )
+    if np.isfinite(kp[0, 0]) and (
+        not np.isfinite(k0[0, 0]) or f_ratio > 1.15 or pp_off > 0.08
+    ):
+        cam_alt, cost_alt = refine(K0_pp)
+        # Prefer by (field-valid, cost): a lower-cost solution whose radial
+        # model is not invertible over its own image field is a degenerate
+        # compensating-distortion fit, not a better basin.
+        pri_ok = np.isfinite(cost) and _intrinsics_field_valid(cam_ref[0], image_size)
+        alt_ok = np.isfinite(cost_alt) and _intrinsics_field_valid(
+            cam_alt[0], image_size
+        )
+        if alt_ok and (not pri_ok or cost_alt < cost):
+            cam_ref, cost = cam_alt, cost_alt
+
+    fx, fy, cx, cy, k1, k2 = (float(cam_ref[0, i]) for i in range(6))
+    camera_matrix = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    dist_coefs = np.array([k1, k2, 0.0, 0.0, 0.0])
+    return camera_matrix, dist_coefs
+
+
+def _intrinsics_opts(lm_options):
+    return lm_options or LMOptions(max_iters=60, ftol=1e-6, loss="linear")
+
+
+def get_intrinsics(
+    calib_uvs,
+    calib_objpoints,
+    image_size,
+    n_samples=100,
+    fix_k3=True,
+    zero_tangent_dist=True,
+    seed=0,
+    lm_options=None,
+    device=None,
+):
+    """Per-camera intrinsics: Zhang init + Schur-LM refine.
+
+    A random sample of ``n_samples`` fully-detected frames; returns
+    (camera_matrix (3,3), dist_coefs (5,)) as numpy. The k3/tangential
+    flags are accepted for API parity and stay zero (the optimized model
+    is k1,k2-radial). The refine runs lm_core's plain torch route (see the
+    module docstring).
+    """
+    del fix_k3, zero_tangent_dist  # parity args; model is k1,k2-only
+    dev = _pick(device, calib_uvs)
+    calib_uvs = _host(calib_uvs)
+    sample, take = _sample_frames(calib_uvs, n_samples, seed)
+    uvs = _t(np.nan_to_num(calib_uvs[sample]), dev)
+    return _intrinsics_from_sample(
+        uvs, take, _t(calib_objpoints, dev), image_size, _intrinsics_opts(lm_options)
+    )
+
+
+def get_intrinsics_batch(
+    all_calib_uvs,
+    calib_objpoints,
+    img_sizes,
+    n_samples=100,
+    seed=0,
+    lm_options=None,
+    device=None,
+):
+    """All cameras' intrinsics; a list of (camera_matrix, dist_coefs).
+
+    The JAX package vmaps the single-camera refine over cameras (a vmapped
+    while_loop holds finished lanes, so each camera gets its sequential
+    result). The port's LM is a host loop, so this runs
+    :func:`get_intrinsics`' program camera by camera, with the same
+    sampling, init, refine and basin guard. Every camera's frame count is
+    checked before any solve.
+    """
+    dev = _pick(device, all_calib_uvs)
+    all_calib_uvs = _host(all_calib_uvs)
+    samples = [
+        _sample_frames(all_calib_uvs[c], n_samples, seed, camera=c)
+        for c in range(all_calib_uvs.shape[0])
+    ]
+    objpoints = _t(calib_objpoints, dev)
+    opts = _intrinsics_opts(lm_options)
+    return [
+        _intrinsics_from_sample(
+            _t(np.nan_to_num(all_calib_uvs[c, sample]), dev), take, objpoints,
+            tuple(float(v) for v in np.asarray(img_sizes[c], float)), opts,
+        )
+        for c, (sample, take) in enumerate(samples)
+    ]
+
+
+def estimate_pairwise_camera_transform(camera1_poses, camera2_poses, device=None):
+    """Median relative transform cam1 -> cam2 over co-observed frames:
+    per-frame T2 @ T1^-1, element-wise masked median of the 6-vectors.
+    Returns a (6,) tensor."""
+    dev = _pick(device, camera1_poses, camera2_poses)
+    p1, p2 = _t(camera1_poses, dev), _t(camera2_poses, dev)
+    common = torch.isfinite(p1).all(-1) & torch.isfinite(p2).all(-1)
+    T1 = get_transformation_matrix(torch.nan_to_num(p1))
+    T2 = get_transformation_matrix(torch.nan_to_num(p2))
+    t_rel = get_transformation_vector(T2 @ se3_inverse(T1))  # (F, 6)
+    return masked_median(t_rel, common[:, None], axis=0)
+
+
+def get_camera_spanning_tree(all_calib_poses, root=0):
+    """Maximum spanning tree over shared-detection counts (host numpy).
+
+    Edges are weighted by co-detection counts, the max spanning tree is
+    found by Prim's algorithm, and edges are returned (parent, child) in
+    BFS order from ``root``.
+    """
+    poses = _host(all_calib_poses)
+    detected = ~np.isnan(poses).any(-1)  # (C, F)
+    n = detected.shape[0]
+    weights = (detected[:, None] & detected[None, :]).sum(-1)
+    in_tree = {root}
+    edges = []
+    adj = {i: [] for i in range(n)}
+    while len(in_tree) < n:
+        best = None
+        for i in sorted(in_tree):
+            for j in range(n):
+                if j in in_tree:
+                    continue
+                if best is None or weights[i, j] > best[2]:
+                    best = (i, j, weights[i, j])
+        i, j, _ = best
+        in_tree.add(j)
+        adj[i].append(j)
+        edges.append((i, j))
+    # BFS order from root, parent-first.
+    order = []
+    queue = [root]
+    while queue:
+        u = queue.pop(0)
+        for v in adj[u]:
+            order.append((u, v))
+            queue.append(v)
+    return order
+
+
+def estimate_all_extrinsics(all_calib_poses, root=0, device=None):
+    """Chain pairwise medians along the spanning tree; root = identity.
+    Returns ((C, 6) numpy extrinsics, tree)."""
+    dev = _pick(device, all_calib_poses)
+    poses = _host(all_calib_poses)
+    n = poses.shape[0]
+    tree = get_camera_spanning_tree(poses, root=root)
+    T = [None] * n
+    T[root] = np.eye(4)
+    for c1, c2 in tree:
+        t_rel = estimate_pairwise_camera_transform(poses[c1], poses[c2], device=dev)
+        T[c2] = _host(get_transformation_matrix(t_rel)) @ T[c1]
+    all_extrinsics = np.stack(
+        [_host(get_transformation_vector(_t(t, dev))) for t in T]
+    )
+    return all_extrinsics, tree
+
+
+def consensus_calib_poses(all_calib_poses, all_extrinsics, device=None):
+    """Median world-frame board pose across cameras, per frame: (F, 6)
+    tensor. T_board2world = T_world2cam^-1 @ T_board2cam per camera,
+    element-wise masked median of the 6-vectors across cameras."""
+    dev = _pick(device, all_calib_poses, all_extrinsics)
+    poses = _t(all_calib_poses, dev)  # (C, F, 6)
+    ext = _t(all_extrinsics, dev)  # (C, 6)
+    detected = torch.isfinite(poses).all(-1)  # (C, F)
+    T_b2c = get_transformation_matrix(torch.nan_to_num(poses))
+    T_w2c_inv = se3_inverse(get_transformation_matrix(ext))[:, None]
+    t_b2w = get_transformation_vector(T_w2c_inv @ T_b2c)  # (C, F, 6)
+    return masked_median(t_b2w, detected[..., None], axis=0)
+
+
+def _median_reproj_err(calib_uvs, poses, K, dist, objpoints, device):
+    """Median per-observation reprojection error (px) for one camera, over
+    the frames with a pose (NaN uvs/poses masked)."""
+    uvs = _t(calib_uvs, device)
+    poses = _t(poses, device)
+    cam12 = _cam12(_t(K, device), _t(dist, device).reshape(-1))
+    pred = _predict(cam12[None], poses, _t(objpoints, device))[0]
+    err = torch.linalg.vector_norm(uvs - pred, dim=-1)
+    ok = torch.isfinite(poses).all(-1)[:, None] & torch.isfinite(uvs).all(-1)
+    return float(masked_median(err.reshape(-1), ok.reshape(-1), axis=0))
+
+
+def _compose_cam_poses(extrinsic6, consensus_poses, device):
+    """Board->camera pose per frame: T(ext_c) @ T(consensus_f), (F, 6);
+    frames without a consensus pose come out NaN."""
+    cp = _t(consensus_poses, device)
+    ok = torch.isfinite(cp).all(-1)
+    T = get_transformation_matrix(_t(extrinsic6, device)) @ get_transformation_matrix(
+        torch.nan_to_num(cp)
+    )
+    return torch.where(ok[:, None], get_transformation_vector(T), torch.nan)
+
+
+def _rig_consistent_err(calib_uvs, extrinsic6, K, dist, consensus_poses,
+                        objpoints, device):
+    """Median reprojection error (px) of one camera against the rig's
+    consensus board poses: the metric that exposes compensating
+    single-camera fits (which look perfect under their own free poses)."""
+    poses = _compose_cam_poses(extrinsic6, consensus_poses, device)
+    return _median_reproj_err(calib_uvs, poses, K, dist, objpoints, device)
+
+
+def _repair_bad_intrinsics(
+    all_calib_uvs,
+    img_sizes,
+    calib_objpoints,
+    all_intrinsics,
+    all_calib_poses,
+    all_extrinsics,
+    consensus_poses,
+    n_samples,
+    verbose,
+    device,
+):
+    """Peer-relative init repair (in place on the intrinsics/poses lists).
+
+    Flag cameras whose rig-consistent median error is an outlier against
+    the rig median, refit them from fresh frame samples, and keep a
+    candidate only if it measurably improves that camera under the same
+    consensus poses. Returns True if anything changed (the caller re-runs
+    the extrinsics tree + consensus). Needs >= 4 cameras.
+    """
+    n_cameras = len(all_intrinsics)
+    if n_cameras < 4:
+        return False
+    errs = np.array([
+        _rig_consistent_err(
+            all_calib_uvs[c], all_extrinsics[c], all_intrinsics[c][0],
+            all_intrinsics[c][1], consensus_poses, calib_objpoints, device,
+        )
+        for c in range(n_cameras)
+    ])
+    peer = float(np.nanmedian(errs))
+    thresh = max(3.0 * peer, 2.0)
+    bad = ~np.isfinite(errs) | (errs > thresh)
+    changed = False
+    for c in np.nonzero(bad)[0]:
+        best_err = errs[c]
+        for seed, ns in ((9973, n_samples), (31337, 2 * n_samples)):
+            try:
+                cand = get_intrinsics(
+                    all_calib_uvs[c], calib_objpoints, img_sizes[c],
+                    n_samples=ns, seed=seed, device=device,
+                )
+            except ValueError:
+                break  # too few fully-detected frames to resample
+            poses_c = _host(
+                estimate_pose(all_calib_uvs[c], calib_objpoints, *cand, device=device)
+            )
+            # Re-anchor the camera to the rig: its extrinsic from the
+            # median relative transform vs the consensus (world) poses.
+            ext_c = _host(estimate_pairwise_camera_transform(
+                consensus_poses, poses_c, device=device
+            ))
+            e = _rig_consistent_err(
+                all_calib_uvs[c], ext_c, cand[0], cand[1], consensus_poses,
+                calib_objpoints, device,
+            )
+            if np.isfinite(e) and e < best_err:
+                all_intrinsics[c] = cand
+                all_calib_poses[c] = poses_c
+                best_err = e
+                changed = True
+            if best_err <= thresh:
+                break
+        if verbose:
+            print(
+                f"  repaired camera {c}: rig-consistent median error "
+                f"{errs[c]:.2f} -> {best_err:.2f} px (rig median {peer:.2f})"
+            )
+    return changed
+
+
+def calibrate(
+    all_calib_uvs,
+    img_sizes,
+    calib_objpoints,
+    root=0,
+    verbose=True,
+    n_samples_for_intrinsics=100,
+    device=None,
+):
+    """Full initialization pipeline, with the JAX signature and returns:
+    (all_extrinsics (C, 6) numpy, all_intrinsics list of (K, dist),
+    consensus poses (F, 6) numpy, spanning_tree).
+
+    Stage timers (``utils.metrics``): ``calibrate.intrinsics``,
+    ``calibrate.poses``, ``calibrate.extrinsics``, ``calibrate.consensus``,
+    ``calibrate.repair``. Each camera's intrinsics and planar poses are
+    solved on their own (the JAX package's backend switch to its vmapped
+    ``_batch`` entry points changes no result, so the port keeps one path).
+    """
+    from ..utils.metrics import metrics
+
+    dev = _pick(device, all_calib_uvs)
+    n_cameras = len(all_calib_uvs)
+    if verbose:
+        print("Estimating camera intrinsics")
+    with metrics.timer("calibrate.intrinsics", n_cameras=n_cameras):
+        all_intrinsics = [
+            get_intrinsics(
+                all_calib_uvs[c], calib_objpoints, img_sizes[c],
+                n_samples=n_samples_for_intrinsics, device=dev,
+            )
+            for c in range(n_cameras)
+        ]
+    if verbose:
+        print("Initializing calibration object poses")
+    with metrics.timer("calibrate.poses"):
+        all_calib_poses = np.stack([
+            _host(estimate_pose(all_calib_uvs[c], calib_objpoints,
+                                *all_intrinsics[c], device=dev))
+            for c in range(n_cameras)
+        ])
+    if verbose:
+        print("Estimating camera extrinsics")
+    with metrics.timer("calibrate.extrinsics"):
+        all_extrinsics, spanning_tree = estimate_all_extrinsics(
+            all_calib_poses, root=root, device=dev
+        )
+    if verbose:
+        print("Merging calibration object poses")
+    with metrics.timer("calibrate.consensus"):
+        calib_poses = _host(consensus_calib_poses(all_calib_poses, all_extrinsics,
+                                                  device=dev))
+    # Rig-consistency check + single-camera init repair (needs the
+    # consensus poses). On repair, re-anchor the tree and consensus once.
+    with metrics.timer("calibrate.repair"):
+        all_intrinsics = list(all_intrinsics)
+        if _repair_bad_intrinsics(
+            all_calib_uvs, img_sizes, calib_objpoints, all_intrinsics,
+            all_calib_poses, all_extrinsics, calib_poses,
+            n_samples_for_intrinsics, verbose, dev,
+        ):
+            all_extrinsics, spanning_tree = estimate_all_extrinsics(
+                all_calib_poses, root=root, device=dev
+            )
+            calib_poses = _host(consensus_calib_poses(
+                all_calib_poses, all_extrinsics, device=dev
+            ))
+    return all_extrinsics, all_intrinsics, calib_poses, spanning_tree

@@ -13,19 +13,27 @@ PyTorch. The design is the JAX engine's:
 - **Robust loss**: soft-L1 via IRLS weights, Jacobi equilibration of both
   solves.
 - **Static shapes**: missing observations are weight-0 mask entries.
+- **Chunked slab layout** (``frame_chunk``): the block build and the Schur
+  reduction loop over frame slabs with the camera accumulators carried, so
+  the per-observation Jacobian intermediates are O(C * frame_chunk); the
+  pose and cross blocks stay O(C * F), as in the JAX layout.
+- **Autodiff oracle** (``jacobian="jacfwd"``): ``torch.func.jacfwd`` of
+  the per-(c, f) projection, the check of the analytic rows; never a
+  default.
 
 The JAX ``lax.while_loop`` becomes a host Python loop: each damping try
 reads its cost back to decide acceptance. On CUDA tensors with the all-f32
 recipe, the block build and the per-try cost run the hand-written kernels
-of :mod:`..ops.ba_cuda`.
+of :mod:`..ops.ba_cuda` (the block build once per frame slab, the cost
+once over all frames).
 
-Not ported yet (ROADMAP.md, Queue 1): ``frame_chunk`` (the chunked slab
-layout), ``jacobian="jacfwd"`` and frame sharding (``axis_name``). Each
-raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1): frame sharding (``axis_name``),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -91,7 +99,11 @@ class LMOptions:
     # Dtype of the per-observation weighting and gradient products; the
     # residual and the frame reductions stay in the data dtype.
     grad_dtype: str | None = None
-    # Frames per linearization chunk. Only None (or >= F) is ported.
+    # Frames per linearization chunk. None builds all (C, F) blocks at once;
+    # an int loops the block build and the Schur reduction over slabs of
+    # that many frames (the last one padded with zero poses and empty
+    # masks). Only the per-observation intermediates are O(C * frame_chunk):
+    # V, W and g_pose of all slabs are kept, O(C * F), as in the JAX layout.
     frame_chunk: int | None = None
     # Block build: "auto" runs the CUDA kernel (ops/ba_cuda.py) on CUDA
     # tensors whenever the options match what it implements (analytic
@@ -109,7 +121,10 @@ class LMOptions:
     # an unsupported recipe. The JAX default is "xla", which carries over
     # as "torch" (convert.lm_options_from_jax).
     cost_impl: str = "auto"
-    # Only "analytic" is ported; "jacfwd" raises NotImplementedError.
+    # "analytic": the closed-form rows of _analytic_pred_and_jacs.
+    # "jacfwd": torch.func.jacfwd of the per-(c, f) projection, the
+    # autodiff oracle the analytic rows are tested against (f64 roundoff);
+    # it never runs the kernels.
     jacobian: str = "analytic"
 
 
@@ -276,11 +291,11 @@ def _cost(cam_params, pose_params, obs, mask, objpoints, opts, prepared):
     """compute_cost with the kernel layout of (obs, mask) optionally given."""
     dtype = cam_params.dtype
     if _cuda_cost_eval(opts, dtype, objpoints):
-        if prepared is None:
-            prepared = ba_cuda.ba_prepare_obs(obs, mask)
+        obs64, msk = (ba_cuda.ba_prepare_obs(obs, mask) if prepared is None
+                      else (prepared.obs, prepared.msk))
         cam64, pose64, objp64 = _kernel_params(cam_params, pose_params, objpoints)
         frags, total = ba_cuda.ba_chunk_cost(
-            cam64, pose64, *prepared, objp64,
+            cam64, pose64, obs64, msk, objp64,
             f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
         )
         return total if dtype == torch.float64 else frags.to(dtype).sum()
@@ -297,9 +312,12 @@ def _cost(cam_params, pose_params, obs, mask, objpoints, opts, prepared):
 
 
 class NormalBlocks(NamedTuple):
-    """Block normal equations, dense layout: U (C,12,12), V (F,6,6),
-    W (C,F,12,6), g_cam (C,12), g_pose (F,6), cost (robust cost at the
-    linearization point)."""
+    """Block normal equations. U (C,12,12), g_cam (C,12) and cost (robust
+    cost at the linearization point) in both layouts. Dense layout
+    (frame_chunk None or >= F): V (F,6,6), W (C,F,12,6), g_pose (F,6).
+    Chunked layout (``nc`` slabs of ``ck`` frames, F padded to nc*ck):
+    V (nc,ck,6,6), W (nc,C,ck,12,6), g_pose (nc,ck,6); ``schur_solve``
+    dispatches on W.ndim."""
 
     U: torch.Tensor
     V: torch.Tensor
@@ -307,6 +325,51 @@ class NormalBlocks(NamedTuple):
     g_cam: torch.Tensor
     g_pose: torch.Tensor
     cost: torch.Tensor
+
+
+class _Prepared(NamedTuple):
+    """The kernels' layout of (obs, mask), made once per solve: ``obs`` /
+    ``msk`` over all frames (the cost kernel's input) and, for a chunked
+    block build, ``slabs``, one contiguous (obs, msk) pair per frame slab."""
+
+    obs: torch.Tensor
+    msk: torch.Tensor
+    slabs: tuple | None
+
+
+def _pad_frames(x, axis, pad):
+    """Zero-pad ``x`` by ``pad`` entries along its frame ``axis``."""
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _chunking(opts: LMOptions, F):
+    """(chunk, pad, n_chunks) of the chunked layout, or None for dense."""
+    chunk = opts.frame_chunk
+    if chunk is None or chunk >= F:
+        return None
+    pad = (-F) % chunk
+    return chunk, pad, (F + pad) // chunk
+
+
+def _prepare(obs, mask, opts: LMOptions):
+    """Kernel layout of (obs, mask), with the chunked build's slabs when the
+    options chunk the frames."""
+    obs64, msk = ba_cuda.ba_prepare_obs(obs, mask)
+    chunking = _chunking(opts, mask.shape[1])
+    slabs = None
+    if chunking is not None:
+        chunk, pad, nc = chunking
+        o, m = _pad_frames(obs64, 1, pad), _pad_frames(msk, 1, pad)
+        slabs = tuple(
+            (o[:, k * chunk:(k + 1) * chunk].contiguous(),
+             m[:, k * chunk:(k + 1) * chunk].contiguous())
+            for k in range(nc)
+        )
+    return _Prepared(obs64, msk, slabs)
 
 
 @with_highest_precision
@@ -319,6 +382,8 @@ def build_normal_blocks(
     ``cam_free`` (C, 12) / ``pose_free`` (F, 6) are 0/1 masks; frozen
     columns get zero Jacobian (their updates come out exactly 0 after the
     solve, whose zero diagonals are identity-padded in ``schur_solve``).
+    With ``opts.frame_chunk`` < F the blocks come in the chunked layout of
+    :class:`NormalBlocks`.
     """
     _no_sharding(axis_name)
     return _build(cam_params, pose_params, obs, mask, objpoints, opts,
@@ -329,48 +394,131 @@ def _build(cam_params, pose_params, obs, mask, objpoints, opts, cam_free,
            pose_free, prepared):
     """build_normal_blocks with the kernel layout of (obs, mask) optionally
     given."""
-    F = pose_params.shape[0]
-    if opts.frame_chunk is not None and opts.frame_chunk < F:
-        raise NotImplementedError(
-            "frame_chunk: " + _ROADMAP.format("chunked slab layout")
+    if opts.jacobian not in ("analytic", "jacfwd"):
+        raise ValueError(f"jacobian must be analytic|jacfwd, got {opts.jacobian!r}")
+    C, F = cam_params.shape[0], pose_params.shape[0]
+    dtype = cam_params.dtype
+    use_kernel = _cuda_block_build(opts, dtype, objpoints)
+    if use_kernel and prepared is None:
+        prepared = _prepare(obs, mask, opts)
+    cf = None if cam_free is None else cam_free.to(dtype)
+
+    def linearize(pose_k, obs_k, mask_k, kernel_obs, pose_free_k):
+        """Blocks of one frame slab, the freezes applied. The freezes are
+        per-camera resp. per-frame, so they distribute over the frame and
+        camera sums: masking the reduced blocks is exact."""
+        if kernel_obs is not None:
+            U, V, W, g_cam, g_pose, cost = _linearize_kernel(
+                cam_params, pose_k, kernel_obs, objpoints, opts)
+        elif opts.jacobian == "analytic":
+            U, V, W, g_cam, g_pose, cost = _linearize_analytic(
+                cam_params, pose_k, obs_k, mask_k, objpoints, opts)
+        else:
+            U, V, W, g_cam, g_pose, cost = _linearize_jacfwd(
+                cam_params, pose_k, obs_k, mask_k, objpoints, opts)
+        if cf is not None:
+            U = U * cf[:, :, None] * cf[:, None, :]
+            W = W * cf[:, None, :, None]
+            g_cam = g_cam * cf
+        if pose_free_k is not None:
+            pf = pose_free_k.to(pose_k.dtype)
+            V = V * pf[:, :, None] * pf[:, None, :]
+            W = W * pf[None, :, None, :]
+            g_pose = g_pose * pf
+        return U, V, W, g_cam, g_pose, cost
+
+    chunking = _chunking(opts, F)
+    if chunking is None:
+        kernel_obs = (prepared.obs, prepared.msk) if use_kernel else None
+        return NormalBlocks(*linearize(pose_params, obs, mask, kernel_obs, pose_free))
+
+    # Chunked: loop over frame slabs; camera accumulators carried, per-frame
+    # blocks emitted in the chunked layout (consumed chunked by schur_solve).
+    chunk, pad, nc = chunking
+    pose_c = _pad_frames(pose_params, 0, pad).reshape(nc, chunk, 6)
+    pf_c = (None if pose_free is None
+            else _pad_frames(pose_free, 0, pad).reshape(nc, chunk, 6))
+    if not use_kernel:
+        obs_p, mask_p = _pad_frames(obs, 1, pad), _pad_frames(mask, 1, pad)
+    U = torch.zeros((C, 12, 12), dtype=dtype, device=cam_params.device)
+    g_cam = torch.zeros((C, 12), dtype=dtype, device=cam_params.device)
+    cost = torch.zeros((), dtype=dtype, device=cam_params.device)
+    Vs, Ws, gps = [], [], []
+    for k in range(nc):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        U_k, V_k, W_k, gc_k, gp_k, cost_k = linearize(
+            pose_c[k],
+            None if use_kernel else obs_p[:, sl],
+            None if use_kernel else mask_p[:, sl],
+            prepared.slabs[k] if use_kernel else None,
+            None if pf_c is None else pf_c[k],
         )
-    if opts.jacobian != "analytic":
-        raise NotImplementedError(
-            f"jacobian={opts.jacobian!r}: " + _ROADMAP.format("jacfwd oracle")
-        )
-    data_dtype = cam_params.dtype
-    if _cuda_block_build(opts, data_dtype, objpoints):
-        if prepared is None:
-            prepared = ba_cuda.ba_prepare_obs(obs, mask)
-        cam64, pose64, objp64 = _kernel_params(cam_params, pose_params, objpoints)
-        Uf, Vf, Wf, gcam_f, gpose_f, cost_f = ba_cuda.ba_chunk_blocks(
-            cam64, pose64, *prepared, objp64,
-            f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
-        )
-        # Same dtype contracts as the plain analytic path: U/V/W
-        # accumulated f32 in the kernel, gradient and cost reductions in the
-        # data dtype.
-        U, V, W = Uf.to(data_dtype), Vf.to(data_dtype), Wf.to(data_dtype)
-        g_cam = gcam_f.to(data_dtype).sum(1)
-        g_pose = gpose_f.to(data_dtype).sum(0)
-        cost = cost_f.to(data_dtype).sum()
+        U, g_cam, cost = U + U_k, g_cam + gc_k, cost + cost_k
+        Vs.append(V_k)
+        Ws.append(W_k)
+        gps.append(gp_k)
+    return NormalBlocks(U=U, V=torch.stack(Vs), W=torch.stack(Ws), g_cam=g_cam,
+                        g_pose=torch.stack(gps), cost=cost)
+
+
+def _linearize_kernel(cam_params, pose_k, kernel_obs, objpoints, opts):
+    """Reduced blocks of one slab through the CUDA block kernel. Same dtype
+    contracts as the plain analytic path: U/V/W accumulated f32 in the
+    kernel, gradient and cost reductions in the data dtype."""
+    dd = cam_params.dtype
+    cam64, pose64, objp64 = _kernel_params(cam_params, pose_k, objpoints)
+    Uf, Vf, Wf, gcam_f, gpose_f, cost_f = ba_cuda.ba_chunk_blocks(
+        cam64, pose64, *kernel_obs, objp64,
+        f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
+    )
+    return (Uf.to(dd), Vf.to(dd), Wf.to(dd), gcam_f.to(dd).sum(1),
+            gpose_f.to(dd).sum(0), cost_f.to(dd).sum())
+
+
+def _linearize_jacfwd(cam_params, pose_params, obs, mask, objpoints, opts):
+    """Reduced blocks through ``torch.func.jacfwd`` of the per-(c, f)
+    projection: the autodiff oracle of the analytic path (the JAX package's
+    ``per_cf``, lm_core.py:458-497).
+
+    Per (c, f): the prediction in the data dtype, the 18 Jacobian columns in
+    ``jac_dtype`` (kept there when ``grad_dtype`` is set too, else cast
+    back), weights and products in ``grad_dtype``, U/V/W contractions in
+    ``block_dtype``; every per-(c, f) block is cast to the data dtype
+    before the frame and camera sums. The cost is the data dtype's.
+    """
+    from torch.func import jacfwd, vmap
+
+    dd = cam_params.dtype
+    jd = _torch_dtype(opts.jac_dtype) or dd
+    objp_j = objpoints.to(jd)
+    jac = jacfwd(lambda c, p: project_board_points(c, p, objp_j), argnums=(0, 1))
+    A, B = vmap(vmap(jac, in_dims=(None, 0)), in_dims=(0, None))(
+        cam_params.to(jd), pose_params.to(jd)
+    )  # (C,F,N,2,12), (C,F,N,2,6)
+    if not (opts.grad_dtype is not None and opts.jac_dtype is not None):
+        A, B = A.to(dd), B.to(dd)
+    m = mask[..., None]
+    r = torch.where(m, torch.nan_to_num(obs) - _predict(cam_params, pose_params, objpoints), 0.0)
+    w = torch.where(m, _robust_weights(r**2, opts), 0.0)
+    cost = _robust_cost(torch.where(m, r**2, 0.0), opts, axis=(-2, -1))  # (C, F)
+    if opts.grad_dtype is not None:
+        gd = _torch_dtype(opts.grad_dtype)
+        wg = w.to(gd)
+        A = torch.where(m[..., None], A.to(gd) * wg[..., None], 0.0)
+        B = torch.where(m[..., None], B.to(gd) * wg[..., None], 0.0)
+        rw = (r * w).to(gd)
     else:
-        U, V, W, g_cam, g_pose, cost = _linearize_analytic(
-            cam_params, pose_params, obs, mask, objpoints, opts
-        )
-    # The freezes are per-camera resp. per-frame, so they distribute over
-    # the frame/camera sums: masking the reduced blocks is exact.
-    if cam_free is not None:
-        cf = cam_free.to(data_dtype)
-        U = U * cf[:, :, None] * cf[:, None, :]
-        W = W * cf[:, None, :, None]
-        g_cam = g_cam * cf
-    if pose_free is not None:
-        pf = pose_free.to(pose_params.dtype)
-        V = V * pf[:, :, None] * pf[:, None, :]
-        W = W * pf[None, :, None, :]
-        g_pose = g_pose * pf
-    return NormalBlocks(U=U, V=V, W=W, g_cam=g_cam, g_pose=g_pose, cost=cost)
+        A = torch.where(m[..., None], A * w[..., None], 0.0)
+        B = torch.where(m[..., None], B * w[..., None], 0.0)
+        rw = r * w
+    bd = _torch_dtype(opts.block_dtype) or dd
+    Ab, Bb = A.to(bd), B.to(bd)
+    U = torch.einsum("cfnki,cfnkj->cfij", Ab, Ab).to(dd).sum(1)
+    V = torch.einsum("cfnki,cfnkj->cfij", Bb, Bb).to(dd).sum(0)
+    W = torch.einsum("cfnki,cfnkj->cfij", Ab, Bb).to(dd)
+    g_cam = torch.einsum("cfnki,cfnk->cfi", A, rw).to(dd).sum(1)
+    g_pose = torch.einsum("cfnki,cfnk->cfi", B, rw).to(dd).sum(0)
+    return U, V, W, g_cam, g_pose, cost.sum()
 
 
 def _analytic_pred_and_jacs(cam_params, pose_params, objpoints, jac_dtype=None):
@@ -569,15 +717,12 @@ def _damp(M, lam, eps):
 def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None):
     """Solve the damped normal equations via the Schur complement.
 
-    Marquardt damping (lam * diag). Returns (dcam (C,12), dpose (F,6)) in
-    the blocks' dtype. With ``opts.solve_dtype`` set the solve runs in that
-    dtype. Dense layout only.
+    Marquardt damping (lam * diag). Returns (dcam (C,12), dpose) in the
+    blocks' dtype: dpose is (F,6) for dense blocks and (nc*ck, 6) for
+    chunked ones (callers drop the padded rows, which are exactly 0). With
+    ``opts.solve_dtype`` set the solve runs in that dtype.
     """
     _no_sharding(axis_name)
-    if blocks.W.ndim != 4:
-        raise NotImplementedError(
-            "chunked blocks: " + _ROADMAP.format("chunked slab layout")
-        )
     C = blocks.U.shape[0]
     dtype = blocks.U.dtype
     sd = (
@@ -586,30 +731,43 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
         else dtype
     )
     lam = float(lam)
-    U = blocks.U.to(sd)
+    U_d = _damp(blocks.U.to(sd), lam, eps)
     g_cam = blocks.g_cam.to(sd)
-    V = blocks.V.to(sd)
-    W = blocks.W.to(sd)
-    g_pose = blocks.g_pose.to(sd)
 
-    U_d = _damp(U, lam, eps)
-    # Damped, equilibrated, batched SPD 6x6 pose-block inverses.
-    V_d = _damp(V, lam, eps)
-    d = 1.0 / torch.sqrt(
-        torch.clamp(torch.diagonal(V_d, dim1=-2, dim2=-1), min=1e-30)
-    )
-    scale = d[..., :, None] * d[..., None, :]
-    V_inv = _spd_inverse(V_d * scale) * scale
+    def reduce_slab(V, W, g_pose):
+        """Schur contribution of one frame slab: S_cross, rhs_cross and the
+        damped, equilibrated, batched SPD 6x6 pose-block inverses."""
+        V_d = _damp(V, lam, eps)
+        d = 1.0 / torch.sqrt(
+            torch.clamp(torch.diagonal(V_d, dim1=-2, dim2=-1), min=1e-30)
+        )
+        scale = d[..., :, None] * d[..., None, :]
+        V_inv = _spd_inverse(V_d * scale) * scale
+        WVinv = torch.einsum("cfij,fjk->cfik", W, V_inv)
+        S_cross = torch.einsum("afik,bfjk->aibj", WVinv, W)
+        rhs_cross = torch.einsum("cfik,fk->ci", WVinv, g_pose)
+        return S_cross, rhs_cross, V_inv
 
-    WVinv = torch.einsum("cfij,fjk->cfik", W, V_inv)
-    S_cross = torch.einsum("afik,bfjk->aibj", WVinv, W)
-    rhs_cross = torch.einsum("cfik,fk->ci", WVinv, g_pose)
+    def back_substitute(V_inv, W, g_pose, dcam):
+        """dpose_f = V_f^-1 (g_pose_f - W_f^T dcam) for one frame slab."""
+        Wt_dcam = torch.einsum("cfik,ci->fk", W, dcam)
+        return torch.einsum("fij,fj->fi", V_inv, g_pose - Wt_dcam)
+
+    V, W, g_pose = (x.to(sd) for x in (blocks.V, blocks.W, blocks.g_pose))
+    if W.ndim == 4:  # dense
+        slabs = [(V, W, g_pose)]
+    else:  # chunked: the Schur reduction loops over the frame slabs
+        slabs = list(zip(V, W, g_pose))
+    # Slab sums in slab order; one slab (dense) adds and copies nothing.
+    S_cross, rhs_cross, V_invs = zip(*(reduce_slab(*slab) for slab in slabs))
+    S_cross = functools.reduce(torch.add, S_cross)
+    rhs_cross = functools.reduce(torch.add, rhs_cross)
     S = torch.block_diag(*U_d) - S_cross.reshape(12 * C, 12 * C)
     rhs = (g_cam - rhs_cross).reshape(12 * C)
     dcam = _equilibrated_solve(S, rhs).reshape(C, 12)
-    # dpose_f = V_f^-1 (g_pose_f - W_f^T dcam)
-    Wt_dcam = torch.einsum("cfik,ci->fk", W, dcam)
-    dpose = torch.einsum("fij,fj->fi", V_inv, g_pose - Wt_dcam)
+    dpose = [back_substitute(V_inv_k, W_k, gp_k, dcam)
+             for V_inv_k, (_, W_k, gp_k) in zip(V_invs, slabs)]
+    dpose = dpose[0] if len(dpose) == 1 else torch.cat(dpose)
     return dcam.to(dtype), dpose.to(dtype)
 
 
@@ -643,11 +801,12 @@ def lm_solve(
     """
     _no_sharding(axis_name)
     dtype = cam_params.dtype
+    F = pose_params.shape[0]
     prepared = None
     if _cuda_block_build(opts, dtype, objpoints) or _cuda_cost_eval(
         opts, dtype, objpoints
     ):
-        prepared = ba_cuda.ba_prepare_obs(obs, mask)
+        prepared = _prepare(obs, mask, opts)
 
     def cost_fn(cam, poses):
         with record_function("lm_solve.cost"):
@@ -674,11 +833,12 @@ def lm_solve(
             """rho = actual / predicted reduction; for the Marquardt step
             (A + lam*D) h = g the model reduction is 0.5 * h^T (lam*D*h + g)."""
             diag_u = torch.diagonal(blocks.U, dim1=-2, dim2=-1)
-            diag_v = torch.diagonal(blocks.V, dim1=-2, dim2=-1)
-            term_cam = torch.sum(dcam * (lam_t * diag_u * dcam + blocks.g_cam))
-            term_pose = torch.sum(
-                dpose * (lam_t * diag_v * dpose + blocks.g_pose)
+            diag_v = torch.diagonal(
+                blocks.V.reshape(-1, 6, 6)[:F], dim1=-2, dim2=-1
             )
+            g_pose = blocks.g_pose.reshape(-1, 6)[:F]
+            term_cam = torch.sum(dcam * (lam_t * diag_u * dcam + blocks.g_cam))
+            term_pose = torch.sum(dpose * (lam_t * diag_v * dpose + g_pose))
             pred = 0.5 * float(term_cam + term_pose)
             return (cost - cost_try) / max(pred, 1e-30)
 
@@ -689,6 +849,7 @@ def lm_solve(
         while not accepted and tries < opts.max_tries and lam_t < opts.max_lambda:
             with record_function("lm_solve.schur_solve"):
                 dcam, dpose = schur_solve(blocks, lam_t, opts=opts)
+            dpose = dpose[:F]  # chunked solves return padded rows
             cam_try = cam + dcam
             poses_try = poses + dpose
             cost_try = cost_fn(cam_try, poses_try)

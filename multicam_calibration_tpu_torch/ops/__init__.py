@@ -1,5 +1,5 @@
-"""Geometry and homography ops; the CUDA kernels' wrappers live in
-``ba_cuda`` and ``corner_cuda``."""
+"""Geometry, homography and masked-reduction ops; the CUDA kernels' wrappers
+live in ``ba_cuda`` and ``corner_cuda``."""
 from .rotation import rodrigues, rodrigues_inv, so3_exp, so3_log, skew
 from .transforms import (
     apply_rigid_transform,
@@ -7,15 +7,27 @@ from .transforms import (
     get_transformation_matrix,
     get_transformation_vector,
     homogeneous_to_euclidean,
+    se3_compose,
+    se3_inverse,
+    se3_inverse_vector,
 )
-from .homography import apply_homography, fit_homography, inv3x3, warp_perspective
+from .homography import (
+    apply_homography,
+    fit_homography,
+    get_perspective_transform,
+    inv3x3,
+    warp_perspective,
+)
 from .projection import (
     denormalize_points,
     distort_normalized,
+    distort_points,
     normalize_points,
     project_points,
     undistort_normalized,
+    undistort_points,
 )
+from .reductions import masked_mean, masked_median, nanmedian
 
 __all__ = [
     "rodrigues",
@@ -28,13 +40,22 @@ __all__ = [
     "get_transformation_matrix",
     "get_transformation_vector",
     "homogeneous_to_euclidean",
+    "se3_compose",
+    "se3_inverse",
+    "se3_inverse_vector",
     "denormalize_points",
     "distort_normalized",
+    "distort_points",
     "normalize_points",
     "project_points",
     "undistort_normalized",
+    "undistort_points",
     "apply_homography",
     "fit_homography",
+    "get_perspective_transform",
     "inv3x3",
     "warp_perspective",
+    "masked_mean",
+    "masked_median",
+    "nanmedian",
 ]

@@ -17,6 +17,7 @@ from .transforms import euclidean_to_homogenous, homogeneous_to_euclidean
 __all__ = [
     "fit_homography",
     "apply_homography",
+    "get_perspective_transform",
     "inv3x3",
     "warp_perspective",
 ]
@@ -121,6 +122,11 @@ def apply_homography(H, pts):
     """Apply 3x3 homographies to points (..., N, 2)."""
     out = torch.einsum("...ij,...nj->...ni", H, euclidean_to_homogenous(pts))
     return homogeneous_to_euclidean(out)
+
+
+def get_perspective_transform(src, dst):
+    """Exact homography from 4 point pairs (cv2.getPerspectiveTransform)."""
+    return fit_homography(src, dst)
 
 
 def warp_perspective(image, H, out_shape):

@@ -6,6 +6,9 @@ Counterpart of ``multicam_calibration_tpu/ops/projection.py``:
   k1, k2 on normalized coordinates, plus tangential/k3 terms when given).
 - ``undistort_normalized`` inverts the 5-coefficient OpenCV model by a
   fixed number of fixed-point iterations; NaN inputs stay NaN.
+- ``distort_points`` / ``undistort_points`` apply the model and its inverse
+  to pixel coordinates of one camera (the cv2.undistortPoints replacement
+  with P = camera_matrix).
 
 Array-like arguments (camera matrices, coefficients, extrinsics) are moved
 to the dtype and device of the point tensor they act on.
@@ -20,7 +23,9 @@ from .transforms import apply_rigid_transform, get_transformation_matrix
 __all__ = [
     "project_points",
     "distort_normalized",
+    "distort_points",
     "undistort_normalized",
+    "undistort_points",
     "normalize_points",
     "denormalize_points",
     "distortion_valid_r2",
@@ -137,3 +142,23 @@ def project_points(points, extrinsics, camera_matrix, dist_coefs=None):
         else xy_norm
     )
     return denormalize_points(xy_dist, camera_matrix)
+
+
+def distort_points(uvs, camera_matrix, dist_coefs):
+    """Apply lens distortion to ideal pixel coords (inverse of undistort)."""
+    return denormalize_points(
+        distort_normalized(normalize_points(uvs, camera_matrix), dist_coefs),
+        camera_matrix,
+    )
+
+
+def undistort_points(uvs, camera_matrix, dist_coefs):
+    """Remove lens distortion from observed pixel coords (...,2).
+
+    The output is in pixel coordinates of the same camera; NaN inputs
+    propagate to NaN outputs (the iteration is NaN-transparent).
+    """
+    return denormalize_points(
+        undistort_normalized(normalize_points(uvs, camera_matrix), dist_coefs),
+        camera_matrix,
+    )

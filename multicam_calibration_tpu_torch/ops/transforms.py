@@ -1,8 +1,9 @@
 """SE(3) rigid-transform ops, batched over leading dims.
 
 Counterpart of ``multicam_calibration_tpu/ops/transforms.py``, limited to
-what projection and ``predict_calib_uvs`` use: 6-vector <-> 4x4 matrix
-conversion, point application and homogeneous-coordinate helpers.
+what projection, initialization and bundle adjustment use: 6-vector <-> 4x4
+matrix conversion, the analytic SE(3) inverse and composition, point
+application and homogeneous-coordinate helpers.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from .rotation import so3_exp, so3_log
 __all__ = [
     "get_transformation_matrix",
     "get_transformation_vector",
+    "se3_inverse",
+    "se3_inverse_vector",
+    "se3_compose",
     "apply_rigid_transform",
     "euclidean_to_homogenous",
     "homogeneous_to_euclidean",
@@ -32,6 +36,29 @@ def get_transformation_matrix(t):
 def get_transformation_vector(T):
     """4x4 matrices (...,4,4) -> 6-vectors (...,6)."""
     return torch.cat([so3_log(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
+
+
+def se3_inverse(T):
+    """Analytic inverse of 4x4 rigid transforms: [R|t]^-1 = [R^T | -R^T t]."""
+    R_T = T[..., :3, :3].mT
+    t_inv = -(R_T @ T[..., :3, 3:])
+    top = torch.cat([R_T, t_inv], dim=-1)
+    bottom = torch.tensor(
+        [0.0, 0.0, 0.0, 1.0], dtype=T.dtype, device=T.device
+    ).expand(*T.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_inverse_vector(t):
+    """Inverse directly in 6-vector form."""
+    return get_transformation_vector(se3_inverse(get_transformation_matrix(t)))
+
+
+def se3_compose(t1, t2):
+    """Compose 6-vector transforms: the result applies ``t2`` then ``t1``."""
+    return get_transformation_vector(
+        get_transformation_matrix(t1) @ get_transformation_matrix(t2)
+    )
 
 
 def euclidean_to_homogenous(x):

@@ -306,3 +306,82 @@ def test_detection_on_card_matches_cpu(device):
     for i in ref:
         np.testing.assert_allclose(got[i][0], ref[i][0], atol=0.01)
         np.testing.assert_allclose(got[i][1], ref[i][1], atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_chunked_block_build_through_kernel_matches_dense(device):
+    """frame_chunk=7 on 23 frames (+2 zero-pose padded frames in the last
+    slab): one block-kernel call per slab, blocks equal to the dense kernel
+    build at the kernel-parity tolerances."""
+    cam, poses, obs, mask, objp = _problem(device, n_frames=23)
+    opts = lm_core.LMOptions(**RECIPE)
+    before = ba_cuda.ba_chunk_blocks.launches
+    dense = lm_core.build_normal_blocks(cam, poses, obs, mask, objp, opts)
+    chunked = lm_core.build_normal_blocks(
+        cam, poses, obs, mask, objp, dataclasses.replace(opts, frame_chunk=7))
+    assert ba_cuda.ba_chunk_blocks.launches - before == 1 + 4
+    C, F = cam.shape[0], poses.shape[0]
+    as_dense = (chunked.U, chunked.V.reshape(-1, 6, 6)[:F],
+                chunked.W.movedim(1, 0).reshape(C, -1, 12, 6)[:, :F], chunked.g_cam,
+                chunked.g_pose.reshape(-1, 6)[:F], chunked.cost)
+    _assert_blocks_close(as_dense[:5] + (as_dense[5].reshape(1),),
+                         tuple(dense[:5]) + (dense.cost.reshape(1),))
+    assert float(chunked.V.reshape(-1, 6, 6)[F:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_pose_mask_through_kernels_matches_twin(device):
+    """The pose-repair solve's route: a pose_free mask on the kernel build
+    against the plain twin, and an lm_solve through the kernels that leaves
+    every frozen pose exactly where it was."""
+    cam, poses, obs, mask, objp = _problem(device, n_frames=23, shift=3e-5)
+    F = poses.shape[0]
+    pose_free = torch.zeros((F, 6), dtype=torch.float64, device=device)
+    pose_free[3::5] = 1.0
+    opts = lm_core.LMOptions(solve_dtype="float32", lambda_escalation=3.0, **RECIPE)
+    got = lm_core.build_normal_blocks(cam, poses, obs, mask, objp, opts, pose_free=pose_free)
+    ref = lm_core.build_normal_blocks(cam, poses, obs, mask, objp,
+                                      dataclasses.replace(opts, block_impl="torch"),
+                                      pose_free=pose_free)
+    _assert_blocks_close(tuple(got[:5]) + (got.cost.reshape(1),),
+                         tuple(ref[:5]) + (ref.cost.reshape(1),))
+    cam_free = torch.zeros((cam.shape[0], 12), dtype=torch.float64, device=device)
+    before = ba_cuda.ba_chunk_blocks.launches
+    _, poses2, info = lm_core.lm_solve(cam, poses + 1e-3, obs, mask, objp, opts,
+                                       cam_free=cam_free, pose_free=pose_free)
+    assert ba_cuda.ba_chunk_blocks.launches - before == info["n_iters"] > 0
+    frozen = pose_free[:, 0] == 0
+    assert torch.equal(poses2[frozen], (poses + 1e-3)[frozen])
+    assert info["final_cost"] < info["initial_cost"]
+
+
+@pytest.mark.cuda
+def test_calibrate_and_bundle_adjust_on_card_match_cpu(device):
+    """A small calibrate -> bundle_adjust on the card (the f32 recipe: both
+    kernels, the f64 polish) against the same calls on the CPU, the recipe
+    given there as lm_options: the same tree and frames, intrinsics rtol
+    1e-7, extrinsics atol 1e-5, final cost rtol 1e-5 (the f32 products round
+    in other orders on the two routes, so the LM stops at other points of
+    its ftol window; 1e-5 is phase 11's bound against the JAX package)."""
+    rig = mct.make_synthetic_rig(n_cameras=4, n_frames=60, noise_px=0.2, dropout=0.1, seed=5)
+    args = (rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints)
+    card = mct.calibrate(*args, verbose=False, n_samples_for_intrinsics=30, device=device)
+    cpu = mct.calibrate(*args, verbose=False, n_samples_for_intrinsics=30, device="cpu")
+    assert card[3] == cpu[3]
+    for (Kg, dg), (Kc, dc) in zip(card[1], cpu[1]):
+        np.testing.assert_allclose(Kg, Kc, rtol=1e-7)
+        np.testing.assert_allclose(dg, dc, atol=1e-6)
+    np.testing.assert_allclose(card[0], cpu[0], atol=1e-5)
+    recipe = dict(block_dtype="float32", cost_dtype="float32", solve_dtype="float32",
+                  grad_dtype="float32", gtol_rel=1e-6, lambda_escalation=3.0)
+    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+    ba_card = mct.bundle_adjust(rig.all_calib_uvs, card[0], card[1], rig.calib_objpoints,
+                                card[2], verbose=False, device=device)
+    assert ba_cuda.ba_chunk_blocks.launches > before[0]
+    assert ba_cuda.ba_chunk_cost.launches > before[1]
+    ba_cpu = mct.bundle_adjust(rig.all_calib_uvs, card[0], card[1], rig.calib_objpoints,
+                               card[2], verbose=False, device="cpu", lm_options=recipe)
+    np.testing.assert_array_equal(ba_card[3], ba_cpu[3])
+    assert not bool(ba_card[4]["polish_on_cpu"]) and int(ba_card[4]["polish_iters"]) >= 1
+    np.testing.assert_allclose(float(ba_card[4]["final_cost"]), float(ba_cpu[4]["final_cost"]),
+                               rtol=1e-5)

@@ -1,4 +1,5 @@
-"""PyTorch port vs the JAX package: rotation, transforms and projection.
+"""PyTorch port vs the JAX package: rotation, transforms, projection and
+the exact four-point homography.
 
 Same numpy inputs (seeded) through both packages in f64 on the CPU,
 including axis-angle vectors below the 1e-8 small-angle threshold. The two
@@ -12,9 +13,11 @@ import torch
 
 import jax.numpy as jnp
 
+from multicam_calibration_tpu.ops import homography as jhom
 from multicam_calibration_tpu.ops import projection as jproj
 from multicam_calibration_tpu.ops import rotation as jrot
 from multicam_calibration_tpu.ops import transforms as jtf
+from multicam_calibration_tpu_torch.ops import homography as thom
 from multicam_calibration_tpu_torch.ops import projection as tproj
 from multicam_calibration_tpu_torch.ops import rotation as trot
 from multicam_calibration_tpu_torch.ops import transforms as ttf
@@ -76,6 +79,25 @@ def test_transforms_match_jax():
     )
 
 
+def _poses(seed, n=20):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([_axis_angles(seed)[:n], rng.normal(size=(n, 3)) * 100], -1)
+
+
+@pytest.mark.parametrize("fn", ["se3_inverse", "se3_inverse_vector", "se3_compose"])
+def test_se3_fns_match_jax(fn):
+    t1, t2 = _poses(7), _poses(8)
+    if fn == "se3_inverse":
+        T = np.array(jtf.get_transformation_matrix(jnp.asarray(t1)))
+        _close(ttf.se3_inverse(torch.as_tensor(T)), jtf.se3_inverse(jnp.asarray(T)))
+    elif fn == "se3_inverse_vector":
+        _close(ttf.se3_inverse_vector(torch.as_tensor(t1)),
+               jtf.se3_inverse_vector(jnp.asarray(t1)))
+    else:
+        _close(ttf.se3_compose(torch.as_tensor(t1), torch.as_tensor(t2)),
+               jtf.se3_compose(jnp.asarray(t1), jnp.asarray(t2)))
+
+
 def _camera(seed):
     rng = np.random.default_rng(seed)
     K = np.array([[900.0 + rng.normal() * 20, 0.3, 640.0 + rng.normal() * 5],
@@ -98,6 +120,31 @@ def test_distortion_matches_jax(n_coefs):
         jproj.undistort_normalized(jnp.asarray(xd), jnp.asarray(dist)),
     )
     assert tproj.distortion_valid_r2(dist) == jproj.distortion_valid_r2(dist)
+
+
+@pytest.mark.parametrize("fn", ["distort_points", "undistort_points"])
+def test_pixel_distortion_matches_jax(fn):
+    """Pixel-coordinate distortion and its fixed-iteration inverse, NaN rows
+    (undetected corners) passing through."""
+    rng = np.random.default_rng(9)
+    K, dist = _camera(9)
+    uv = rng.uniform(100, 1100, size=(4, 30, 2))
+    uv[1, 3] = np.nan
+    got = getattr(tproj, fn)(torch.as_tensor(uv), K, dist).numpy()
+    ref = np.asarray(getattr(jproj, fn)(jnp.asarray(uv), jnp.asarray(K), jnp.asarray(dist)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    _close(np.nan_to_num(got), np.nan_to_num(ref))
+
+
+def test_get_perspective_transform_matches_jax():
+    rng = np.random.default_rng(10)
+    src = rng.uniform(0, 100, size=(5, 4, 2))
+    dst = src + rng.normal(size=src.shape) * 5
+    got = thom.get_perspective_transform(torch.as_tensor(src), torch.as_tensor(dst))
+    ref = np.asarray(jhom.get_perspective_transform(jnp.asarray(src), jnp.asarray(dst)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9, atol=1e-9 * np.abs(ref).max())
+    mapped = thom.apply_homography(got, torch.as_tensor(src)).numpy()
+    np.testing.assert_allclose(mapped, dst, atol=1e-9)  # exact through all 4 pairs
 
 
 def test_pixel_normalization_matches_jax():

@@ -157,14 +157,19 @@ def test_schur_solve_f32(tiny):
 
 
 def test_not_ported_options_raise(tiny):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(frame_chunk=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(jacobian="jacfwd"))
+    """Frame sharding (axis_name) is the one option still to port; the
+    chunked layout and the jacfwd oracle are ported
+    (tests/test_torch_lm_chunked.py) and an unknown Jacobian mode raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.compute_cost(*_t(tiny), tlm.LMOptions(), axis_name="frames")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(), axis_name="frames")
+    with pytest.raises(ValueError, match="jacobian"):
+        tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(jacobian="jvp"))
+    assert tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(frame_chunk=4)).W.ndim == 5
+    assert tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(jacobian="jacfwd")).W.ndim == 4
     # frame_chunk >= F is the dense layout, as in the JAX package.
-    tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(frame_chunk=16))
+    assert tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(frame_chunk=16)).W.ndim == 4
 
 
 def test_options_match_jax_fields():
