@@ -84,7 +84,38 @@ line each:
    own final cost (before the polish) of the kernel and chunked routes
    within 1e-5 of the plain route's.
 
-Then one JSON line describing each kernel, with its bound on this card
+12. the low-band path (``coarse_downscale`` 2 and 3) on phase 9's batches:
+   the corner kernel against its twin bit for bit on the decimated frames
+   (128 x 240 x 320 and 128 x 160 x 213, NMS radius 2) at sigma 1.5, 3.5, 6
+   and 9, each timed beside its bound; on the 16 stored frames the decisions
+   of the JAX package's low-band run (``data/detect_lowband.npz``, from
+   ``scripts/export_torch_detect_lowband.py``), corners within 0.01 px;
+   then 10 rounds of f = 1, 2, 3 on fresh batches of 128, interleaved in
+   this process: frames/s (every call listed), rate 1.0, RMS corner error
+   < 0.6 px, every corner within 0.25 px of the f = 1 call on the same
+   batch, image bytes uploaded and corner-kernel launches per call;
+13. ``detect_chessboard_batches`` over 8 batches of 128 (one of them empty)
+   at f = 1 and 2: each dict bit-equal to a sequential
+   ``detect_chessboard_batch`` call, ``{}`` for the empty batch; no
+   dispatch synchronises (``torch.cuda.set_sync_debug_mode("error")``);
+   frames/s of the streamed and the sequential run, interleaved; from one
+   ``torch.profiler`` pass, how many ms of each batch's stage-1 device work
+   ran while the previous batch's host half ran;
+14. ``detect_chessboard`` at ``scale_factor`` 0.5 and 0.75 on the 16 stored
+   frames: the JAX package's decisions, corners within 0.01 px; the resize
+   of a stored frame within 1e-4 of JAX's; the corner kernel against its
+   twin at the resized shapes (1 x 240 x 320, 1 x 360 x 480; NMS radius 4),
+   timed;
+15. the native lattice growth: ``csrc/lattice.cc`` built with the host
+   compiler (its log printed); on the stored candidates native and numpy
+   growth keep the same corner set and the same lattice up to symmetry;
+   the host half's ms on the stored hard frames on each route;
+   ``detect_chessboard_batch`` on the stored frames equal within 1e-5 on
+   either route.
+
+Then one line naming the host packages this machine has for the modules
+not ported yet (h5py, yaml, pandas, cv2, libavformat; it gates nothing),
+one JSON line describing each kernel, with its bound on this card
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type: 67 TFLOP/s f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet),
 and last the device line. Any failed check raises, and the script exits
@@ -126,6 +157,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "corner_response_kernel": ("multicam_calibration_tpu_torch/csrc/corner_kernels.cu",
                                "multicam_calibration_tpu/ops/pallas_kernels.py:44"),
 }
+LOWBAND_F = (2, 3)  # scripts/bench_detection.py:211
+SCALES = (0.5, 0.75)
+STREAM_BATCHES, EMPTY_AT = 8, 3  # phase 13: 8 batches, the 4th empty
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 and f64 flop/s outside
 # the tensor cores.
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
@@ -435,11 +469,7 @@ def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
 
     # 9. the full-width timed run: the clean frames tiled to batch 128 with
     # seeded +-2 noise (scripts/bench_detection.py:176-188), fresh per call
-    rng = np.random.default_rng(7)
-    tiled = np.concatenate([frames[clean]] * reps)[:BATCH]
-    gt = np.concatenate([d["gt"][clean]] * reps)[:BATCH]
-    batches = [np.clip(tiled.astype(np.int16) + rng.integers(-2, 3, tiled.shape, dtype=np.int16),
-                       0, 255).astype(np.uint8) for _ in range(TIMED_CALLS + 1)]
+    batches, gt = noisy_batches(d, TIMED_CALLS + 1, seed=7)
     detect(batches[0])  # warm-up
     cc.corner_response_peaks.launches = 0
     cc.corner_response_fused.launches = 0
@@ -789,6 +819,396 @@ def bundle_adjust_phase(torch, dev, cal, errs):
         bundle_adjustment.lm_solve = lm_solve
 
 
+def noisy_batches(d, n, seed):
+    """``n`` batches of BATCH: the clean stored frames tiled, with fresh
+    seeded +-2 noise per batch (scripts/bench_detection.py:176-188), and
+    their ground truth."""
+    clean = np.nonzero(d["kind"] == "clean")[0]
+    reps = -(-BATCH // len(clean))
+    tiled = np.concatenate([d["frames"][clean]] * reps)[:BATCH]
+    gt = np.concatenate([d["gt"][clean]] * reps)[:BATCH]
+    rng = np.random.default_rng(seed)
+    return [np.clip(tiled.astype(np.int16) + rng.integers(-2, 3, tiled.shape, dtype=np.int16),
+                    0, 255).astype(np.uint8) for _ in range(n)], gt
+
+
+def same_as_stored(got, accepted, uvs, scores, what):
+    """The JAX package's stored decisions, corners within 0.01 px, sorted
+    anchor scores within 1e-3. Returns the largest corner difference."""
+    acc = np.nonzero(accepted)[0]
+    check(sorted(got) == sorted(int(i) for i in acc),
+          f"{what}: accepted frames {sorted(got)} != JAX's {acc.tolist()}")
+    du = ds = 0.0
+    for j, i in enumerate(acc):
+        du = max(du, float(np.abs(np.asarray(got[int(i)][0]) - uvs[j]).max()))
+        ds = max(ds, float(np.abs(np.asarray(got[int(i)][1]) - scores[j]).max()))
+    check(du <= 0.01, f"{what}: corners differ from JAX's by {du:.4f} px")
+    check(ds <= 1e-3, f"{what}: anchor scores differ from JAX's by {ds:.2e}")
+    return du
+
+
+def time_corner(torch, gray, sigma, nms):
+    """(kernel ms, twin ms, bound) of the peaks kernel on ``gray``."""
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    B, H, W = gray.shape
+    return (cuda_ms(torch, lambda: cc.corner_response_peaks(gray, sigma, nms)),
+            cuda_ms(torch, lambda: cc.corner_response_peaks_reference(gray, sigma, nms), 3),
+            corner_bound(B, H, W, sigma, nms, True))
+
+
+def corner_shape_text(shape, nms, rows):
+    return f"{shape} nms {nms}: " + "; ".join(
+        f"sigma {sigma} {ms:.4f} ms, twin {tw:.4f} (bound {b[0]:.4f}, {b[1]}; {ms / b[0]:.1f}x)"
+        for sigma, (ms, tw, b) in rows.items())
+
+
+def lowband_phase(torch, dev, errs):
+    """Phase 12: the low-band path. Returns {shape: {sigma: (ms, twin ms,
+    bound)}} of the corner kernel at its shapes."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.detection import detector
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    d = np.load(os.path.join(DATA, "detect_frames.npz"))
+    low = np.load(os.path.join(DATA, "detect_lowband.npz"))
+    board = tuple(int(v) for v in d["board_shape"])
+    batches, gt = noisy_batches(d, TIMED_CALLS + 1, seed=12)
+    kernel_times = {}
+    for f in LOWBAND_F:
+        g = torch.as_tensor(detector._decimate_u8(batches[0], f), device=dev).float() / 255.0
+        nms = max(2, int(round(4 / f)))
+        msg = []
+        for sigma in (1.5, 3.5, 6.0, 9.0):
+            errs["corner_peaks_kernel"] = max(errs["corner_peaks_kernel"],
+                                              compare_corner(torch, g, sigma, nms, True))
+        rows = {sigma: time_corner(torch, g, sigma, nms) for sigma in (1.5, 3.5, 6.0, 9.0)}
+        kernel_times[tuple(g.shape)] = rows
+        msg.append(corner_shape_text(tuple(g.shape), nms, rows))
+        log(f"12 kernel f={f}", "bit-equal to its twin at sigma 1.5, 3.5, 6, 9 (and a "
+            "relaunch); " + "; ".join(msg))
+
+    def detect(images, f):
+        before = (cc.corner_response_peaks.launches, detector._upload.nbytes)
+        out, wall = timed(torch, lambda: mct.detect_chessboard_batch(
+            list(images), board_shape=board, coarse_downscale=f, device=dev))
+        return (out, wall, cc.corner_response_peaks.launches - before[0],
+                detector._upload.nbytes - before[1])
+
+    for f in LOWBAND_F:
+        got = detect(d["frames"], f)[0]
+        du = same_as_stored(got, low[f"low{f}_accepted"], low[f"low{f}_uvs"],
+                            low[f"low{f}_scores"], f"stored frames f={f}")
+        log(f"12 parity f={f}", f"{len(d['frames'])} stored frames: accepted "
+            f"{len(got)}/{len(d['frames'])} as JAX's low-band run; max |corner diff| {du:.2e} px")
+
+    for f in (1,) + LOWBAND_F:
+        detect(batches[0], f)  # warm-up
+    res = {f: [] for f in (1,) + LOWBAND_F}
+    cc.corner_response_peaks.launches = 0  # the low-band main path, read after the loop
+    for r, b in enumerate(batches[1:]):
+        order = ((1,) + LOWBAND_F)[r % 3:] + ((1,) + LOWBAND_F)[: r % 3]
+        for f in order:
+            res[f].append(detect(b, f))
+        full = res[1][-1][0]
+        for f in LOWBAND_F:
+            out = res[f][-1][0]
+            check(sorted(out) == sorted(full), f"f={f}: frames {sorted(out)} vs f=1 {sorted(full)}")
+            dev_max = max(float(np.abs(out[i][0] - full[i][0]).max()) for i in full)
+            check(dev_max < 0.25, f"f={f}: a corner {dev_max:.3f} px from the f=1 path's")
+    n_low = sum(n for f in LOWBAND_F for _, _, n, _ in res[f])
+    check(n_low > 0, "the low-band path did not launch the corner kernel")
+    for f, rs in res.items():
+        n_det = sum(len(o) for o, *_ in rs)
+        rate = n_det / (BATCH * TIMED_CALLS)
+        err = np.concatenate([((o[i][0] - gt[i]) ** 2).sum(-1) for o, *_ in rs for i in o])
+        rms = float(np.sqrt(err.mean()))
+        check(rate == 1.0, f"f={f}: detection rate {rate}")
+        check(rms < 0.6, f"f={f}: RMS corner error {rms:.4f} px")
+        fps = [BATCH / w for _, w, _, _ in rs]
+        log(f"12 detection f={f}", f"batch {BATCH} x {d['frames'].shape[1]}x{d['frames'].shape[2]}"
+            f", interleaved with f=1,2,3: median {statistics.median(fps):.1f} frames/s (runs "
+            + ", ".join(f"{v:.1f}" for v in fps) + f"); detection rate {rate:.3f}; RMS corner "
+            f"error {rms:.4f} px; image bytes uploaded per call "
+            + ", ".join(sorted({str(u) for *_, u in rs})) + "; corner-kernel launches per call "
+            + ", ".join(str(n) for _, _, n, _ in rs))
+    return kernel_times
+
+
+def device_overlap(torch, prof):
+    """From one profiler pass over ``detect_chessboard_batches``: for each
+    batch after the first, (ms of its device work that ran inside the
+    previous batch's host half, ms of its device work before its own host
+    half began). A batch's stream is the stream of the host-to-device copy
+    that starts while it is dispatched; its device work is what runs on that
+    stream from its dispatch to its host half. Returns (pairs, note)."""
+    evs = list(prof.events())
+    cpu = torch.autograd.DeviceType.CPU
+
+    def ranges(name):
+        return sorted((e.time_range.start, e.time_range.end) for e in evs
+                      if e.name == f"detect_chessboard_batches.{name}" and e.device_type == cpu)
+
+    dispatches, finishes = ranges("dispatch"), ranges("finish")
+    dev_evs = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("detect_chessboard_batches")
+               and not getattr(e, "is_user_annotation", False)]
+    copies = sorted((e for e in dev_evs if "HtoD" in e.name), key=lambda e: e.time_range.start)
+    out, missing = [], []
+    for k in range(1, min(len(dispatches), len(finishes))):
+        ds, de = dispatches[k]
+        copy = next((e for e in copies if ds <= e.time_range.start <= de), None)
+        if copy is None:
+            missing.append(k)
+            continue
+        stream = copy.device_resource_id
+        mine = [e for e in dev_evs if e.device_resource_id == stream
+                and ds <= e.time_range.start < finishes[k][0]]
+        fs, fe = finishes[k - 1]
+        inside = sum(max(0.0, min(e.time_range.end, fe) - max(e.time_range.start, fs))
+                     for e in mine)
+        out.append((inside / 1e3, sum(e.time_range.elapsed_us() for e in mine) / 1e3))
+    note = (f"{len(dispatches)} dispatches, {len(finishes)} host halves, {len(copies)} "
+            f"host-to-device copies ({', '.join(sorted({e.name for e in copies}))}); no copy "
+            f"found inside the dispatch of batches {missing}" if missing else "")
+    return out, note
+
+
+def streaming_phase(torch, dev):
+    """Phase 13: streamed batches against sequential calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    d = np.load(os.path.join(DATA, "detect_frames.npz"))
+    board = tuple(int(v) for v in d["board_shape"])
+    full, _ = noisy_batches(d, STREAM_BATCHES - 1, seed=13)
+    batches = full[:EMPTY_AT] + [[]] + full[EMPTY_AT:]
+    n_frames = sum(len(b) for b in batches)
+
+    def streamed(f):
+        return list(mct.detect_chessboard_batches(batches, board_shape=board, coarse_downscale=f,
+                                                  device=dev))
+
+    def sequential(f):
+        return [mct.detect_chessboard_batch(list(b), board_shape=board, coarse_downscale=f,
+                                            device=dev) if len(b) else {} for b in batches]
+
+    for f in (1, 2):
+        cc.corner_response_peaks.launches = 0  # the streamed main path, read just after
+        got = streamed(f)
+        check(cc.corner_response_peaks.launches > 0, "streaming did not launch the corner kernel")
+        want = sequential(f)
+        check(len(got) == len(batches) and got[EMPTY_AT] == {}, f"f={f}: not one dict per batch")
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(sorted(g) == sorted(w) and all(
+                np.array_equal(g[i][0], w[i][0]) and np.array_equal(g[i][1], w[i][1]) for i in w),
+                f"f={f}: batch {k} differs from its sequential call")
+        walls = {"streamed": [], "sequential": []}
+        for name in ("streamed", "sequential", "sequential", "streamed"):
+            walls[name].append(timed(torch, lambda: (streamed if name == "streamed"
+                                                     else sequential)(f))[1])
+        log(f"13 streaming f={f}", f"{len(batches)} batches ({n_frames} frames, batch {EMPTY_AT} "
+            f"empty): every dict bit-equal to its sequential call; frames/s streamed "
+            + ", ".join(f"{n_frames / w:.1f}" for w in walls["streamed"]) + ", sequential "
+            + ", ".join(f"{n_frames / w:.1f}" for w in walls["sequential"])
+            + " (interleaved: streamed, sequential, sequential, streamed)")
+    # Dispatch must not synchronise: one warm streamed run with every
+    # synchronising CUDA call inside a dispatch raising.
+    from multicam_calibration_tpu_torch.detection import detector
+
+    dispatch = detector._BatchOptions.dispatch
+
+    def strict_dispatch(self, images, stage=None):
+        if stage is None:  # a host half's own calls (the low band's escalation)
+            return dispatch(self, images, stage)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(self, images, stage)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    detector._BatchOptions.dispatch = strict_dispatch
+    try:
+        for f in (1, 2):
+            streamed(f)
+    finally:
+        detector._BatchOptions.dispatch = dispatch
+    log("13 no sync", "f=1 and f=2: no dispatch called a synchronising CUDA operation "
+        "(torch.cuda.set_sync_debug_mode('error') inside each dispatch)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        streamed(1)
+        torch.cuda.synchronize()
+    ov, note = device_overlap(torch, prof)
+    log("13 overlap", "f=1, one profiled streamed run: device ms of batch k+1 run during "
+        "batch k's host half / its device ms before its own host half: "
+        + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in ov)
+        + f"; total {sum(a for a, _ in ov):.2f} of {sum(b for _, b in ov):.2f} ms"
+        + (f" (not measured for every batch: {note})" if note else ""))
+
+
+def scale_phase(torch, dev, errs):
+    """Phase 14: the single-frame scale_factor path. Returns {shape: {sigma:
+    (ms, twin ms, bound)}} of the corner kernel at its shapes."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.detection import detector
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    d = np.load(os.path.join(DATA, "detect_frames.npz"))
+    low = np.load(os.path.join(DATA, "detect_lowband.npz"))
+    board = tuple(int(v) for v in d["board_shape"])
+    frames = d["frames"]
+    gray = detector._to_gray_f(frames[int(low["resize_frame"])], dev)
+    ref = low["resize_gray"]
+    got = detector._resize_bilinear(gray, ref.shape).cpu().numpy()
+    rerr = float(np.abs(got - ref).max())
+    check(rerr <= 1e-4, f"resize differs from jax.image.resize by {rerr:.2e}")
+    kernel_times = {}
+    for s in SCALES:
+        g = detector._resize_bilinear(gray, (int(round(480 * s)), int(round(640 * s))))[None] / 255.0
+        errs["corner_peaks_kernel"] = max(errs["corner_peaks_kernel"],
+                                          compare_corner(torch, g, 1.5, 4, True))
+        kernel_times[tuple(g.shape)] = {1.5: time_corner(torch, g, 1.5, 4)}
+    log("14 kernel", "bit-equal to its twin; " + "; ".join(
+        corner_shape_text(shape, 4, rows) for shape, rows in kernel_times.items()))
+    for s in SCALES:
+        key = f"scale{int(round(100 * s)):03d}"
+        cc.corner_response_peaks.launches = 0  # the scale_factor main path, read just after
+        walls, out = [], {}
+        for i, fr in enumerate(frames):
+            r, w = timed(torch, lambda: mct.detect_chessboard(fr, board_shape=board, scale_factor=s,
+                                                              device=dev))
+            walls.append(w)
+            if r is not None:
+                out[i] = r
+        n = cc.corner_response_peaks.launches
+        check(n >= len(frames), f"scale {s}: {n} corner-kernel launches for {len(frames)} frames")
+        du = same_as_stored(out, low[f"{key}_accepted"], low[f"{key}_uvs"], low[f"{key}_scores"],
+                            f"scale_factor {s}")
+        log(f"14 scale_factor {s}", f"{len(frames)} stored frames: accepted {len(out)} as JAX's; "
+            f"max |corner diff| {du:.2e} px; resize max |diff| {rerr:.2e}; median "
+            f"{1e3 * statistics.median(walls):.2f} ms per frame; corner-kernel launches {n}")
+    return kernel_times
+
+
+def lattice_up_to_symmetry(ga, gb):
+    """True when two grown lattices ({(i, j): candidate}) select the same
+    candidate at every cell under one of the 8 flip/transpose symmetries and
+    a translation."""
+    if ga is None or gb is None:
+        return ga is gb
+    cell_of = {v: k for k, v in gb.items()}
+    if len(ga) != len(gb) or len(cell_of) != len(gb) or set(cell_of) != set(ga.values()):
+        return False
+    for swap in (False, True):
+        for si in (1, -1):
+            for sj in (1, -1):
+                offs = {(cell_of[v][0] - si * (j if swap else i),
+                         cell_of[v][1] - sj * (i if swap else j)) for (i, j), v in ga.items()}
+                if len(offs) == 1:
+                    return True
+    return False
+
+
+def lattice_phase(torch, dev, lattice_build):
+    """Phase 15: the native lattice growth against the numpy route."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.detection import detector, native_lattice
+
+    built = lattice_build.result()
+    log("15 build", f"{built.path.name} in {built.build_s:.2f} s; log: "
+        + " | ".join(ln.strip() for ln in built.log.splitlines() if ln.strip()))
+    d = np.load(os.path.join(DATA, "detect_frames.npz"))
+    board = tuple(int(v) for v in d["board_shape"])
+    n_needed = board[0] * board[1]
+    n_grids = 0
+    for k, (p, s) in enumerate(zip(d["cand_xy"].astype(float), d["cand_score"].astype(float))):
+        rn = native_lattice.grow_lattice(p, s, n_needed, 0.35)
+        rp = detector._grow_lattice_numpy(p, s, n_needed, 0.35)
+        check(np.array_equal(rn[0], rp[0]) and abs(rn[2] - rp[2]) <= 1e-9,
+              f"frame {k}: native growth keeps other candidates or pitch than numpy")
+        check((rn[3] is None) == (rp[3] is None) and (rn[3] is None or (
+            set(rn[3].values()) == set(rp[3].values()) and lattice_up_to_symmetry(rn[3], rp[3]))),
+            f"frame {k}: native lattice differs from numpy's beyond symmetry")
+        n_grids += rn[3] is not None
+
+    def numpy_route(on):
+        if on:
+            os.environ[native_lattice.DISABLE_ENV] = "1"
+        else:
+            os.environ.pop(native_lattice.DISABLE_ENV, None)
+
+    grow = native_lattice.grow_lattice
+
+    def counted(*args):
+        counted.calls += 1
+        return grow(*args)
+
+    sets = {"hard": d["kind"] == "hard", "blurred": np.char.startswith(d["kind"], "blur")}
+    finish_ms, dets = {}, {}
+    native_lattice.grow_lattice = counted
+    try:
+        for name, pick in sets.items():
+            stage1 = detector._batch_dispatch(list(d["frames"][pick]), 160, 4, 5, board, 40, dev)
+            ms = finish_ms[name] = {"native": [], "numpy": [], "native calls": 0}
+            for route in ("native", "numpy") * 5:
+                numpy_route(route == "numpy")
+                counted.calls = 0
+                ms[route].append(1e3 * timed(torch, lambda: detector._batch_finish(
+                    stage1, int(pick.sum()), board, True, 0.2, 40))[1])
+                if route == "native":
+                    ms["native calls"] = counted.calls
+        for route in ("native", "numpy"):
+            numpy_route(route == "numpy")
+            dets[route] = mct.detect_chessboard_batch(list(d["frames"]), board_shape=board,
+                                                      device=dev)
+    finally:
+        numpy_route(False)
+        native_lattice.grow_lattice = grow
+    a, b = dets["native"], dets["numpy"]
+    du = max((float(np.abs(a[i][0] - b[i][0]).max()) for i in a), default=0.0)
+    check(sorted(a) == sorted(b) and du <= 1e-5,
+          f"detections differ between the routes: {sorted(a)} vs {sorted(b)}, {du:.2e} px")
+    log("15 native lattice", f"stored candidates of {len(d['frames'])} frames: {n_grids} grids, "
+        "native = numpy (same candidates, pitch, corner set; lattice up to symmetry); "
+        + "; ".join(
+            f"host half on the {int(sets[name].sum())} stored {name} frames ({ms['native calls']} "
+            f"native growth calls), ms: native " + ", ".join(f"{v:.2f}" for v in ms["native"])
+            + f" (median {statistics.median(ms['native']):.2f}), numpy "
+            + ", ".join(f"{v:.2f}" for v in ms["numpy"])
+            + f" (median {statistics.median(ms['numpy']):.2f})"
+            for name, ms in finish_ms.items())
+        + f"; detect_chessboard_batch on the stored frames: {len(a)} accepted on either route, "
+        f"max |corner diff| {du:.1e} px")
+
+
+def host_packages():
+    """Which host packages the modules not ported yet would need are here:
+    h5py, yaml, pandas and cv2 by import, libavformat by its library."""
+    import ctypes
+    import ctypes.util
+    import importlib
+
+    have = []
+    for name in ("h5py", "yaml", "pandas", "cv2"):
+        try:
+            mod = importlib.import_module(name)
+            have.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except ImportError:
+            have.append(f"{name} absent")
+    lib = ctypes.util.find_library("avformat")
+    if lib is None:
+        have.append("libavformat absent")
+    else:
+        try:
+            v = ctypes.CDLL(lib).avformat_version()
+            have.append(f"{lib} {v >> 16}.{(v >> 8) & 255}.{v & 255}")
+        except (OSError, AttributeError) as e:
+            have.append(f"{lib} found, not loadable ({e})")
+    return "; ".join(have)
+
+
 def main():
     import torch
 
@@ -802,9 +1222,10 @@ def main():
     from multicam_calibration_tpu_torch.ops import _build, ba_cuda
 
     dev = cuda_device()
-    pool = concurrent.futures.ThreadPoolExecutor(2)
+    pool = concurrent.futures.ThreadPoolExecutor(3)
     builds = {name: pool.submit(_build.load_library, name)
               for name in ("ba_kernels", "corner_kernels")}
+    builds["lattice"] = pool.submit(_build.load_host_library, "lattice")
 
     # 1. the card
     smi = subprocess.run(
@@ -961,6 +1382,11 @@ def main():
     detect_phases(torch, dev, builds["corner_kernels"], launches, errs, times, bounds)
     cal = calibrate_phase(torch, dev)
     bundle_adjust_phase(torch, dev, cal, errs)
+    lowband_phase(torch, dev, errs)
+    streaming_phase(torch, dev)
+    scale_phase(torch, dev, errs)
+    lattice_phase(torch, dev, builds["lattice"])
+    log("host packages", host_packages())
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -7,8 +7,10 @@ neither JAX nor the JAX package. Ported so far: the calibration pipeline
 (``models.initialize.calibrate`` -> ``models.bundle_adjustment.bundle_adjust``
 over the Schur-LM engine ``models.lm_core``) with its geometry ops and
 masked reductions, the synthetic rig, the stage metrics
-(``utils.metrics``), and full-resolution chessboard detection
-(``detection.detector``); see ROADMAP.md for the rest.
+(``utils.metrics``), and chessboard detection (``detection.detector``:
+the batch path at full resolution and in the low band, streamed batches,
+the single-frame ``scale_factor`` path, the native lattice growth); see
+ROADMAP.md for the rest.
 
 Entry points take numpy input and run on the CUDA device unless the caller
 passes ``device="cpu"`` (or CPU tensors).
@@ -20,6 +22,7 @@ from .detection import (
     corner_response,
     detect_chessboard,
     detect_chessboard_batch,
+    detect_chessboard_batches,
     find_corner_candidates,
     generate_chessboard_objpoints,
     refine_corners_subpix,
@@ -66,6 +69,7 @@ __all__ = list(_ops_all) + [
     "corner_response",
     "detect_chessboard",
     "detect_chessboard_batch",
+    "detect_chessboard_batches",
     "find_corner_candidates",
     "refine_corners_subpix",
     "deserialize_params",

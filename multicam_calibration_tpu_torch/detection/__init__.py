@@ -4,6 +4,7 @@ from .detector import (
     corner_response,
     detect_chessboard,
     detect_chessboard_batch,
+    detect_chessboard_batches,
     extend_grid,
     find_corner_candidates,
     refine_corners_subpix,
@@ -15,6 +16,7 @@ __all__ = [
     "corner_response",
     "detect_chessboard",
     "detect_chessboard_batch",
+    "detect_chessboard_batches",
     "extend_grid",
     "find_corner_candidates",
     "refine_corners_subpix",

@@ -1,8 +1,7 @@
 """Chessboard detection in PyTorch, with a hand-written CUDA corner kernel.
 
-Counterpart of ``multicam_calibration_tpu/detection/detector.py``, the
-full-resolution batch path (``detect_chessboard_batch`` and
-``detect_chessboard``), with the same names and the same stages:
+Counterpart of ``multicam_calibration_tpu/detection/detector.py``, with the
+same names, options and stages:
 
 - **Device, batched over frames**: grayscale, the fused corner response +
   NMS (``ops.corner_cuda.corner_response_peaks``: the CUDA kernel for CUDA
@@ -11,14 +10,26 @@ full-resolution batch path (``detect_chessboard_batch`` and
   anchor-orientation scores.
 - **Host (numpy, tens of points)**: the lattice growth and window gates that
   order candidates of the frames the device ordering did not certify — a
-  copy of the JAX package's numpy code.
+  copy of the JAX package's numpy code, with the growth itself in C++
+  (``native_lattice``, built with the host compiler) where the JAX package
+  takes its native route.
+
+Entry points: ``detect_chessboard_batch`` (the batch pipeline; with
+``coarse_downscale = f > 1`` the low-band path: stage 1 on host-decimated
+frames, full-resolution refinement on uploaded patches, escalation of lost
+frames), ``detect_chessboard_batches`` (the same over an iterable of
+batches, with one batch of lookahead on CUDA streams) and
+``detect_chessboard`` (one frame; ``scale_factor != 1`` detects on a
+resized gray and refines at full resolution).
 
 Numerics follow the JAX package in f32. Where JAX relied on an order the
 TPU gave it, the port asks for it: top-K is a stable descending sort (the
 lower index wins a tie, as ``lax.top_k``), every argsort is stable, and
 every stage runs with TF32 off (``device.with_highest_precision``). The
 one-hot "selection matmuls" the TPU used to cut windows out of patches are
-plain gathers here (exact, as the matmuls were).
+plain gathers here (exact, as the matmuls were). Shapes are not padded to
+powers of two: the JAX package did that to reuse TPU compiles, and every
+frame's decision is independent of the others in the batch.
 
 Entry points take ``device=None``, meaning the CUDA device
 (``device.cuda_device``, which raises when there is none); pass
@@ -27,15 +38,19 @@ Entry points take ``device=None``, meaning the CUDA device
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..device import cuda_device, with_highest_precision
 from ..ops.corner_cuda import corner_response_fused, corner_response_peaks
 from ..ops.homography import apply_homography, fit_homography, inv3x3
+from . import native_lattice
 
 __all__ = [
     "corner_response",
@@ -46,6 +61,7 @@ __all__ = [
     "reorder_chessboard_corners",
     "detect_chessboard",
     "detect_chessboard_batch",
+    "detect_chessboard_batches",
 ]
 
 _INF = float("inf")
@@ -279,8 +295,8 @@ def _subpix_refine_patches(px_p, py_p, q0, win_size, max_drift=3.0, n_iters=4):
 # ---------------------------------------------------------------------------
 #
 # A numpy copy of the JAX package's host ordering
-# (multicam_calibration_tpu/detection/detector.py:349-1067), with the
-# lattice growth on its numpy path only.
+# (multicam_calibration_tpu/detection/detector.py:349-1067); the lattice
+# growth at rung 0 runs in C++ (native_lattice), as the JAX package's does.
 
 
 _HOLE_TOLERANCE = 3
@@ -558,8 +574,15 @@ def _grow_lattice_numpy(pts, sc, n_needed, pitch_tol, max_holes=None,
 
 
 def _grow_lattice(pts, sc, n_needed, pitch_tol, max_holes=None, rung=0):
-    """Lattice growth: the numpy path (the JAX package's native C++ port
-    gives identical results and is not ported yet)."""
+    """Lattice growth, routed as the JAX package routes it: the native C++
+    build (``native_lattice``) at rung 0 with the default hole budget, the
+    numpy path for an escalated ``max_holes``, an upper pitch-ladder
+    ``rung``, or when the environment sets ``MCC_NO_NATIVE_LATTICE``. The
+    two keep the same candidates, pitch and corner set, and the same
+    lattice up to coordinate symmetry. A failed native build raises."""
+    if rung == 0 and (max_holes is None or max_holes == _HOLE_TOLERANCE) \
+            and native_lattice.enabled():
+        return native_lattice.grow_lattice(pts, sc, n_needed, pitch_tol)
     return _grow_lattice_numpy(pts, sc, n_needed, pitch_tol, max_holes,
                                rung=rung)
 
@@ -1425,18 +1448,11 @@ def _extend_grid_local(uv_grid, extend_rows, extend_cols, window=3):
     lead = uv_grid.shape[:-3]
     rows = R + 2 * extend_rows
     cols = C + 2 * extend_cols
-    ys, xs = np.mgrid[0:rows, 0:cols]
-    xy_full = torch.as_tensor(
-        np.stack([xs, ys], axis=-1), dtype=uv_grid.dtype, device=uv_grid.device
-    )
     w = min(window, R, C)
     corner_windows = [(0, 0), (0, C - w), (R - w, C - w), (R - w, 0)]
-    src = torch.stack([
-        xy_full[
-            extend_rows + i0 : extend_rows + i0 + w, extend_cols + j0 : extend_cols + j0 + w
-        ].reshape(-1, 2)
-        for (i0, j0) in corner_windows
-    ])  # (4, w*w, 2)
+    xy_full, src, q_idx = _extend_local_consts(
+        R, C, extend_rows, extend_cols, w, uv_grid.dtype, uv_grid.device
+    )
     dst = torch.stack(
         [
             uv_grid[..., i0 : i0 + w, j0 : j0 + w, :].reshape(*lead, w * w, 2)
@@ -1444,14 +1460,35 @@ def _extend_grid_local(uv_grid, extend_rows, extend_cols, window=3):
         ],
         dim=-3,
     )  # (..., 4, w*w, 2)
-    H = fit_homography(src.expand(dst.shape), dst)
+    # The eigh DLT, by inverse iteration: no host sync in stage 1.
+    H = fit_homography(src.expand(dst.shape), dst, method="inverse")
     exts = apply_homography(H, xy_full.reshape(-1, 2))  # (..., 4, rows*cols, 2)
+    p_idx = torch.arange(rows * cols, device=uv_grid.device)
+    return exts[..., q_idx, p_idx, :].reshape(*lead, rows, cols, 2)
+
+
+@functools.cache
+def _extend_local_consts(R, C, extend_rows, extend_cols, w, dtype, device):
+    """The constant tensors of ``_extend_grid_local`` for one shape: the
+    extended grid's lattice coordinates, the four corner windows' and each
+    cell's quadrant. Cached per device, so that a call after the first
+    copies nothing from the host (a blocking copy would synchronise the
+    stream that streamed detection dispatches on)."""
+    rows = R + 2 * extend_rows
+    cols = C + 2 * extend_cols
+    ys, xs = np.mgrid[0:rows, 0:cols]
+    xy_full = torch.as_tensor(np.stack([xs, ys], axis=-1), dtype=dtype, device=device)
+    corner_windows = [(0, 0), (0, C - w), (R - w, C - w), (R - w, 0)]
+    src = torch.stack([
+        xy_full[
+            extend_rows + i0 : extend_rows + i0 + w, extend_cols + j0 : extend_cols + j0 + w
+        ].reshape(-1, 2)
+        for (i0, j0) in corner_windows
+    ])  # (4, w*w, 2)
     top = ys < rows / 2
     left = xs < cols / 2
     quad = np.where(top & left, 0, np.where(top, 1, np.where(~left, 2, 3)))
-    q_idx = torch.as_tensor(quad.reshape(-1), device=uv_grid.device)
-    p_idx = torch.arange(rows * cols, device=uv_grid.device)
-    return exts[..., q_idx, p_idx, :].reshape(*lead, rows, cols, 2)
+    return xy_full, src, torch.as_tensor(quad.reshape(-1), device=device)
 
 
 def _generate_anchor_template(size):
@@ -1484,18 +1521,28 @@ def _detrend_np(s):
     return _generate_anchor_template(s), X, np.linalg.pinv(X)
 
 
+@functools.cache
+def _anchor_consts(s, dtype, device):
+    """(X, pinv(X), template) on ``device``, and the target quad of s x s
+    regions; cached per device (see ``_extend_local_consts``)."""
+    template, X, P = _detrend_np(s)
+    target = [[0.0, s], [0.0, 0.0], [s, 0.0], [s, s]]
+    return tuple(
+        torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
+        for a in (X, P, template, target)
+    )
+
+
 def _anchor_detrend_basis(s, dtype, device):
     """Linear-ramp detrend projector + detrended template for s x s regions:
     removing the best-fit ramp before correlating makes the anchor score
     invariant to lighting gradients across the region."""
-    template, X, P = _detrend_np(s)
-    Xt = torch.as_tensor(X, dtype=dtype, device=device)
-    Pt = torch.as_tensor(P, dtype=dtype, device=device)
+    Xt, Pt, template, _ = _anchor_consts(s, dtype, device)
 
     def detrend(v):
         return v - (v @ Pt.T) @ Xt.T  # batched over leading dims
 
-    t = detrend(torch.as_tensor(template, dtype=dtype, device=device).reshape(1, -1))[0]
+    t = detrend(template.reshape(1, -1))[0]
     return detrend, t, torch.sqrt((t**2).sum())
 
 
@@ -1520,7 +1567,7 @@ def _anchor_match_scores_impl(image, ext, template_size=40):
     PS = min(_ANCHOR_PATCH, span)
     n_levels = max(span // PS, 1)
 
-    target = torch.tensor([[0.0, s], [0.0, 0.0], [s, 0.0], [s, s]], dtype=dtype, device=dev)
+    target = _anchor_consts(s, dtype, dev)[3]
     all_source = _anchor_source_quads(ext)  # (B, 4, 4, 2)
     detrend, t, t_norm = _anchor_detrend_basis(s, dtype, dev)
 
@@ -1709,28 +1756,140 @@ def detect_chessboard(
     nms_radius=4,
     device=None,
 ):
-    """Detect and order chessboard corners in one image: the batch pipeline
-    at B = 1. Returns ``(uvs (N, 2), match_scores (4,))`` when
-    ``reorder=True`` (None if no board or an ambiguous anchor), else ``uvs``
-    or None. ``adaptive_threshold`` is a no-op parity flag (the saddle
-    response is invariant to the lighting fields it exists for);
-    ``scale_factor != 1`` is not ported yet (ROADMAP Queue 1, item 5)."""
-    if scale_factor != 1:
-        raise NotImplementedError(
-            "scale_factor != 1 is not ported yet (ROADMAP Queue 1, item 5)"
-        )
-    return detect_chessboard_batch(
-        [image],
-        board_shape=board_shape,
-        reorder=reorder,
-        match_score_min_diff=match_score_min_diff,
-        max_candidates=max_candidates,
-        nms_radius=nms_radius,
-        subpix_winSize=subpix_winSize,
-        adaptive_threshold=adaptive_threshold,
-        normalize_image=normalize_image,
-        device=device,
-    ).get(0)
+    """Detect and order chessboard corners in one image. Returns ``(uvs
+    (N, 2), match_scores (4,))`` when ``reorder=True`` (None if no board or
+    an ambiguous anchor), else ``uvs`` or None. ``adaptive_threshold`` is a
+    no-op parity flag (the saddle response is invariant to the lighting
+    fields it exists for).
+
+    ``scale_factor == 1`` is the batch pipeline at B = 1. Otherwise the
+    candidates come from the gray resized by ``scale_factor`` (bilinear,
+    antialiased when it shrinks, as ``jax.image.resize``), are ordered into
+    up to ``_N_WINDOW_HYPOTHESES`` windows (with the occlusion escalation's
+    hole budget when none is found), and each window is refined at full
+    resolution, validated and anchor-scored; then the repair pass and the
+    normalized-anchor rescue, as in the JAX package."""
+    del adaptive_threshold  # parity arg; the response is offset invariant
+    if scale_factor == 1:
+        return detect_chessboard_batch(
+            [image],
+            board_shape=board_shape,
+            reorder=reorder,
+            match_score_min_diff=match_score_min_diff,
+            max_candidates=max_candidates,
+            nms_radius=nms_radius,
+            subpix_winSize=subpix_winSize,
+            normalize_image=normalize_image,
+            device=device,
+        ).get(0)
+    return _detect_scaled(
+        image, board_shape, _subpix_win(subpix_winSize), scale_factor, normalize_image,
+        reorder, match_score_min_diff, max_candidates, nms_radius, _resolve_device(device),
+    )
+
+
+@functools.cache
+def _resize_weights(n_in, n_out):
+    """(n_in, n_out) f32 weights of ``jax.image.resize``'s "bilinear" along
+    one axis: the triangle kernel at the output samples' centres, widened by
+    1 / scale when shrinking (antialiasing), normalized per output sample,
+    and zero for samples outside the input; computed in f64."""
+    inv = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv, 1.0)
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+@with_highest_precision
+def _resize_bilinear(gray, shape):
+    """``jax.image.resize(gray, shape, "bilinear")`` for one (H, W) gray:
+    the separable weights applied as two f32 products."""
+    H, W = gray.shape
+    wh = torch.as_tensor(_resize_weights(H, shape[0]), device=gray.device)
+    ww = torch.as_tensor(_resize_weights(W, shape[1]), device=gray.device)
+    return wh.T @ gray @ ww
+
+
+@with_highest_precision
+def _detect_scaled(image, board_shape, win_size, scale_factor, normalize_image, reorder,
+                   match_score_min_diff, max_candidates, nms_radius, dev):
+    """``detect_chessboard`` for ``scale_factor != 1`` (the JAX package's
+    single-frame path): detection resolution for the candidates, full
+    resolution for everything after them."""
+    gray = _to_gray_f(image, dev)
+    h, w = gray.shape
+    gray_det = _resize_bilinear(
+        gray, (int(round(h * scale_factor)), int(round(w * scale_factor))))
+    xy, score = find_corner_candidates(
+        gray_det[None] / 255.0, max_candidates=max_candidates, nms_radius=nms_radius)
+    cand = xy[0].cpu().numpy() / scale_factor
+    sc = score[0].cpu().numpy()
+    order = functools.partial(
+        order_grid_points, cand, sc, board_shape, refined=False,
+        position_jitter=0.5 / scale_factor, n_windows=_N_WINDOW_HYPOTHESES,
+        return_masks=True,
+    )
+    wins = order()
+    esc_budget = _escalated_hole_budget(board_shape[0] * board_shape[1])
+    if not wins and esc_budget > _HOLE_TOLERANCE:
+        wins = order(max_holes=esc_budget)  # the occlusion escalation
+    grid_shape = (board_shape[1], board_shape[0], 2)
+
+    def refine(uvs, max_drift=3.0):
+        pts = torch.as_tensor(np.asarray(uvs)[None], dtype=torch.float32, device=dev)
+        return refine_corners_subpix(gray[None] / 255.0, pts, win_size=win_size,
+                                     max_drift=max_drift)[0].cpu().numpy()
+
+    def consider(uvs, cmask, best):
+        """Validate and anchor-score one refined window: ("done", uvs) when
+        ``reorder=False`` accepts it, else the better of ``best`` and
+        (margin, reordered uvs, sorted scores, uvs)."""
+        if not _grid_smoothness_ok(uvs.reshape(grid_shape), cmask, win=win_size):
+            return best
+        if not reorder:
+            return ("done", uvs)
+        uvs_r, match_scores, _ = reorder_chessboard_corners(image, uvs, board_shape, device=dev)
+        margin = match_scores[0] - match_scores[1]
+        if best is None or margin > best[0]:
+            return (margin, uvs_r, match_scores, uvs)
+        return best
+
+    best = None
+    refined_wins = []
+    for uvs0, cmask in wins:
+        uvs = _settle_constructed(refine(uvs0), np.asarray(uvs0, float), cmask)
+        refined_wins.append((uvs, cmask))
+        best = consider(uvs, cmask, best)
+        if best is not None and best[0] == "done":
+            return best[1]
+    if best is None or best[0] < match_score_min_diff:
+        # The repair pass: re-predict lone outlier cells, re-refine tightly.
+        for uvs, cmask in refined_wins:
+            rep = _repair_grid(uvs.reshape(grid_shape), constructed=cmask)
+            if rep is None:
+                continue
+            rep_uvs, rep_mask = rep
+            best = consider(refine(rep_uvs.reshape(-1, 2), max_drift=1.0),
+                            rep_mask.reshape(-1), best)
+            if best is not None and best[0] == "done":
+                return best[1]
+    if best is None or not reorder:
+        return None
+    margin, uvs_r, match_scores, uvs_raw = best
+    if margin >= match_score_min_diff:
+        return uvs_r, match_scores
+    # The normalized-anchor rescue for a plausible margin.
+    if normalize_image and margin >= 0.4 * match_score_min_diff:
+        g_norm = _normalize_local(gray[None])[0].cpu().numpy()
+        uvs_n, scores_n, _ = reorder_chessboard_corners(g_norm, uvs_raw, board_shape, device=dev)
+        if scores_n[0] - scores_n[1] >= match_score_min_diff:
+            return uvs_n, scores_n
+    return None
 
 
 @with_highest_precision
@@ -1761,48 +1920,378 @@ def detect_chessboard_batch(
     failed frames), the occlusion escalation and the normalized-anchor
     rescue, as in the JAX package.
 
+    ``coarse_downscale = f > 1`` runs stage 1 and the host decisions on
+    host box-decimated frames (1/f^2 of the bytes uploaded), re-refines every
+    accepted corner at full resolution on uploaded patches, and sends the
+    frames it loses, or whose promoted grid fails the full-resolution
+    lattice gate, through this full-resolution path. ``scale_factor != 1``
+    runs ``detect_chessboard`` frame by frame.
+
     Returns ``{frame_index: (uvs (N, 2), sorted scores (4,))}`` (``uvs``
     alone when ``reorder=False``), numpy. ``device=None`` runs on the CUDA
-    device and raises without one. ``coarse_downscale > 1`` and
-    ``scale_factor != 1`` are not ported yet (ROADMAP Queue 1, item 5);
-    unknown keyword arguments raise ``TypeError``.
+    device and raises without one; unknown keyword arguments raise
+    ``TypeError``.
     """
     del adaptive_threshold  # parity arg; the response is offset invariant
     if unsupported:
         raise TypeError(f"unexpected keyword arguments: {sorted(unsupported)}")
-    if coarse_downscale and coarse_downscale > 1:
-        raise NotImplementedError(
-            "coarse_downscale > 1 (the low-band path) is not ported yet "
-            "(ROADMAP Queue 1, item 5)"
-        )
-    if scale_factor != 1:
-        raise NotImplementedError(
-            "scale_factor != 1 is not ported yet (ROADMAP Queue 1, item 5)"
-        )
     dev = _resolve_device(device)
     win_size = _subpix_win(subpix_winSize)
     B = len(images)
+    if scale_factor != 1:
+        out = {}
+        for i, img in enumerate(images):
+            det = detect_chessboard(
+                img, board_shape=board_shape, reorder=reorder,
+                match_score_min_diff=match_score_min_diff, max_candidates=max_candidates,
+                nms_radius=nms_radius, scale_factor=scale_factor,
+                subpix_winSize=subpix_winSize, normalize_image=normalize_image, device=dev,
+            )
+            if det is not None:
+                out[i] = det
+        return out
     if B == 0:
         return {}
-    stage1 = _batch_dispatch(
-        images, max_candidates, nms_radius, win_size, board_shape, template_size, dev
-    )
-    return _batch_finish(
-        stage1, B, board_shape, reorder, match_score_min_diff, template_size,
-        win_size, normalize_image=normalize_image,
-        max_candidates=max_candidates, nms_radius=nms_radius,
-    )
+    opts = _BatchOptions(board_shape, reorder, match_score_min_diff, max_candidates,
+                         nms_radius, template_size, win_size, normalize_image,
+                         coarse_downscale, dev)
+    return opts.finish(opts.dispatch(images))
 
 
-def _batch_dispatch(images, max_candidates, nms_radius, win_size, board_shape, template_size, dev):
-    """Upload the uint8 frames and run device stage 1; returns
-    (gray, xy, score, grids, scores4, ok) as device tensors."""
-    frames = np.stack([np.asarray(im) for im in images])
-    gray = _gray_from_u8(torch.as_tensor(frames, device=dev))
+@dataclasses.dataclass(frozen=True)
+class _BatchOptions:
+    """The options of one batch detection, and its two halves: ``dispatch``
+    (upload and device stage 1; reads nothing back) and ``finish`` (the host
+    decisions). ``coarse_downscale`` > 1 is the low-band path, at
+    ``f = int(coarse_downscale)``."""
+
+    board_shape: tuple
+    reorder: bool
+    match_score_min_diff: float
+    max_candidates: int
+    nms_radius: int
+    template_size: int
+    win_size: int
+    normalize_image: bool
+    coarse_downscale: float
+    dev: torch.device
+
+    @property
+    def lowband(self):
+        return bool(self.coarse_downscale and self.coarse_downscale > 1)
+
+    @property
+    def f(self):
+        return int(self.coarse_downscale) if self.lowband else 1
+
+    def dispatch(self, images, stage=None):
+        if self.lowband:
+            return _lowband_dispatch(images, self, stage)
+        return _batch_dispatch(
+            images, self.max_candidates, self.nms_radius, self.win_size, self.board_shape,
+            self.template_size, self.dev, stage,
+        ), len(images)
+
+    def finish(self, state):
+        if self.lowband:
+            return _lowband_finish(state, self)
+        stage1, B = state
+        return _batch_finish(
+            stage1, B, self.board_shape, self.reorder, self.match_score_min_diff,
+            self.template_size, self.win_size, normalize_image=self.normalize_image,
+            max_candidates=self.max_candidates, nms_radius=self.nms_radius,
+        )
+
+
+def detect_chessboard_batches(
+    batches,
+    *,
+    board_shape=(7, 10),
+    reorder=True,
+    match_score_min_diff=0.2,
+    max_candidates=160,
+    nms_radius=4,
+    template_size=40,
+    scale_factor=1,
+    subpix_winSize=(5, 5),
+    adaptive_threshold=True,
+    normalize_image=True,
+    coarse_downscale=1,
+    device=None,
+    **unsupported,
+):
+    """``detect_chessboard_batch`` over an iterable of frame batches, with
+    one batch of lookahead.
+
+    Yields one ``{batch_local_index: detection}`` dict per input batch, in
+    order (``{}`` for an empty batch), equal to what
+    ``detect_chessboard_batch`` returns for that batch with the same
+    options. Batch k + 1 is dispatched (uploaded and its device stage 1
+    queued, with nothing read back) before batch k's host half runs, so on
+    the card its copy and device work can run while batch k's host work
+    does. Each batch in flight owns a
+    CUDA stream and a pinned host buffer: the frames are staged into the
+    buffer and copied with ``non_blocking=True`` on the batch's stream,
+    which runs its stage 1 and, later, its host half's device calls, so no
+    tensor crosses streams. A buffer is refilled only after the event
+    recorded behind its last copy has completed. ``scale_factor != 1``
+    (the per-frame path) has nothing to overlap and runs batch by batch.
+    """
+    del adaptive_threshold  # parity arg; the response is offset invariant
+    if unsupported:
+        raise TypeError(f"unexpected keyword arguments: {sorted(unsupported)}")
+    dev = _resolve_device(device)
+    if scale_factor != 1:
+        for images in batches:
+            yield detect_chessboard_batch(
+                images, board_shape=board_shape, reorder=reorder,
+                match_score_min_diff=match_score_min_diff, max_candidates=max_candidates,
+                nms_radius=nms_radius, template_size=template_size,
+                scale_factor=scale_factor, subpix_winSize=subpix_winSize,
+                normalize_image=normalize_image, device=dev,
+            )
+        return
+    opts = _BatchOptions(board_shape, reorder, match_score_min_diff, max_candidates,
+                         nms_radius, template_size, _subpix_win(subpix_winSize),
+                         normalize_image, coarse_downscale, dev)
+    on_card = dev.type == "cuda"
+    # Two slots: the batch being finished and the one dispatched ahead.
+    slots = [(torch.cuda.Stream(dev) if on_card else None,
+              _PinnedStage() if on_card else None) for _ in range(2)]
+
+    @with_highest_precision
+    def dispatch(images, stream, stage):
+        with _on(stream), record_function("detect_chessboard_batches.dispatch"):
+            return opts.dispatch(images, stage), stream
+
+    @with_highest_precision
+    def finish(pending):
+        state, stream = pending
+        with _on(stream), record_function("detect_chessboard_batches.finish"):
+            return opts.finish(state)
+
+    # A result is made under its batch's stream and yielded outside it, so
+    # the caller's code between two results runs on its own stream.
+    pending = None  # (state, stream) of the batch dispatched before this one
+    for k, images in enumerate(batches):
+        cur = dispatch(images, *slots[k % 2]) if len(images) else None
+        if pending is not None:
+            yield finish(pending)
+        pending = cur
+        if cur is None:
+            yield {}
+    if pending is not None:
+        yield finish(pending)
+
+
+def _on(stream):
+    """``torch.cuda.stream(stream)``, or nothing for the CPU (``None``)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+class _PinnedStage:
+    """A pinned host buffer that one batch's frames are staged into for an
+    asynchronous copy to the card, and the event recorded after that copy."""
+
+    def __init__(self):
+        self.buf = None
+        self.copied = None
+
+    def upload(self, frames, dev):
+        """Copy ``frames`` (a list of (H, W[, 3]) arrays, or one array) to
+        ``dev`` on the current stream without blocking the host."""
+        first = np.asarray(frames[0])
+        shape = (len(frames),) + first.shape
+        dtype = torch.from_numpy(first.reshape(-1)[:0]).dtype
+        if self.copied is not None:
+            self.copied.synchronize()  # the buffer's last copy has finished
+        if self.buf is None or tuple(self.buf.shape) != shape or self.buf.dtype != dtype:
+            self.buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+        host = self.buf.numpy()
+        if isinstance(frames, np.ndarray):
+            np.copyto(host, frames)
+        else:
+            np.stack([np.asarray(im) for im in frames], out=host)
+        out = self.buf.to(dev, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        _upload.nbytes += host.nbytes
+        return out
+
+
+def _upload(arr, dev):
+    """``arr`` (numpy) as a tensor on ``dev``. ``_upload.nbytes`` counts
+    the bytes of the frames and patches that detection copies to a card."""
+    if dev.type != "cpu":
+        _upload.nbytes += arr.nbytes
+    return torch.as_tensor(arr, device=dev)
+
+
+_upload.nbytes = 0
+
+
+def _batch_dispatch(images, max_candidates, nms_radius, win_size, board_shape, template_size, dev,
+                    stage=None):
+    """Upload the uint8 frames and queue device stage 1; returns (gray, xy,
+    score, grids, scores4, ok) as device tensors and reads nothing back.
+    With ``stage`` (a ``_PinnedStage``) the copy goes through its pinned
+    buffer without blocking; without, ``images`` are stacked and copied
+    from pageable memory."""
+    if stage is None:
+        frames = _upload(np.stack([np.asarray(im) for im in images]), dev)
+    else:
+        frames = stage.upload(images, dev)
+    gray = _gray_from_u8(frames)
     rows, cols = board_shape
     return (gray,) + _stage1_impl(
         gray, max_candidates, nms_radius, rows, cols, template_size, win_size
     )
+
+
+# ---------------------------------------------------------------------------
+# Low-band batch path: stage 1 and the host decisions on host-decimated
+# frames, full-resolution accuracy from per-corner patches uploaded alone.
+# ---------------------------------------------------------------------------
+
+
+def _decimate_u8(frames, f):
+    """Box-mean decimate uint8 frames (B, H, W[, 3]) by the integer ``f``:
+    the rounded mean (sum + f^2 // 2) // f^2 of each f x f block, cropping
+    the ragged edge. Low-res pixel j covers full-res pixels f j .. f j + f - 1,
+    so a low-res coordinate x maps back to f x + (f - 1) / 2.
+
+    The JAX package's integers, summed rows first (contiguous slices), then
+    columns, in uint16 where the block sum fits (f <= 15) and uint32 beyond:
+    uint16 overflows at f >= 16."""
+    B, H, W = frames.shape[:3]
+    Hc, Wc = (H // f) * f, (W // f) * f
+    acc_t = np.uint16 if f * f * 255 + f * f // 2 <= np.iinfo(np.uint16).max else np.uint32
+    x = frames[:, :Hc, :Wc].reshape((B, Hc // f, f, Wc) + frames.shape[3:])
+    rows = x[:, :, 0].astype(acc_t)
+    for a in range(1, f):
+        rows += x[:, :, a]
+    rows = rows.reshape((B, Hc // f, Wc // f, f) + frames.shape[3:])
+    out = rows[:, :, :, 0].copy()
+    for b in range(1, f):
+        out += rows[:, :, :, b]
+    out += f * f // 2
+    out //= f * f
+    return out.astype(np.uint8)
+
+
+def _refine_u8_patches(patches, q0, win_size, max_drift=3.0):
+    """Subpixel-refine corners on uint8 patches (M, S2, S2[, 3]) with
+    S2 = 2 (win_size + ceil(max_drift) + 1) + 3 (a one-pixel margin for the
+    central differences); ``q0`` (M, 2) is the start in the gradient
+    patch's frame (patch pixel (1, 1) is its (0, 0)). Returns (M, 2) in the
+    same frame."""
+    g = _gray_from_u8(patches) / 255.0
+    gx = 0.5 * (g[:, 1:-1, 2:] - g[:, 1:-1, :-2])
+    gy = 0.5 * (g[:, 2:, 1:-1] - g[:, :-2, 1:-1])
+    return _subpix_refine_patches(gx, gy, q0, win_size, max_drift=max_drift)
+
+
+def _refine_fullres_group(frames, pts_full, win_size, dev, max_drift=3.0):
+    """Full-resolution refinement of ``pts_full`` (n, K, 2): the S2 x S2
+    uint8 patch around each point is cut on the host, the patches alone are
+    uploaded (~1/20 of the frames' bytes) and refined on ``dev``; returns
+    (n, K, 2) f64.
+
+    Row a of ``pts_full`` is cut from ``frames[a]``, as the JAX package
+    does: its caller passes the group's points and the batch's frames, so a
+    group that is not the batch's leading frames in order is refined on
+    other frames' pixels (ROADMAP, Queue 3)."""
+    n, K = pts_full.shape[:2]
+    R = win_size + int(np.ceil(max_drift)) + 1
+    S2 = 2 * R + 3
+    H, W = frames.shape[1:3]
+    cxy = np.rint(pts_full).astype(np.int64)
+    ox = np.clip(cxy[..., 0] - (R + 1), 0, W - S2)
+    oy = np.clip(cxy[..., 1] - (R + 1), 0, H - S2)
+    ar = np.arange(S2)
+    patches = frames[np.arange(n)[:, None, None, None],
+                     (oy[..., None] + ar)[..., :, None],
+                     (ox[..., None] + ar)[..., None, :]]  # (n, K, S2, S2[, 3])
+    origin = np.stack([ox + 1, oy + 1], axis=-1).astype(np.float64)
+    q0 = (pts_full - origin).reshape(n * K, 2)
+    refined = _refine_u8_patches(
+        _upload(patches.reshape((n * K,) + patches.shape[2:]), dev),
+        torch.as_tensor(q0, dtype=torch.float32, device=dev), win_size, max_drift=max_drift,
+    )
+    return refined.cpu().numpy().astype(np.float64).reshape(n, K, 2) + origin
+
+
+def _lowband_params(opts):
+    """(nms, template size, window) at 1/f resolution."""
+    f = opts.f
+    return (max(2, int(round(opts.nms_radius / f))), max(16, int(round(opts.template_size / f))),
+            max(3, int(round(opts.win_size / f))))
+
+
+def _lowband_dispatch(images, opts, stage=None):
+    """Decimate on the host, upload the small frames, queue stage 1 at 1/f
+    resolution. Returns (stage-1 tensors, the full-res host frames, images)."""
+    frames = np.stack([np.asarray(im) for im in images])
+    low = _decimate_u8(frames, opts.f)
+    nms_low, tpl_low, win_low = _lowband_params(opts)
+    stage1 = _batch_dispatch(low, opts.max_candidates, nms_low, win_low, opts.board_shape,
+                             tpl_low, opts.dev, stage)
+    return stage1, frames, images
+
+
+def _lowband_finish(state, opts):
+    """Low-res decisions, full-resolution patch re-refinement of every
+    accepted corner, and the full-resolution batch path for lost frames."""
+    stage1, frames, images = state
+    B = len(images)
+    nms_low, tpl_low, win_low = _lowband_params(opts)
+    out_low, acc_win = _batch_finish(
+        stage1, B, opts.board_shape, opts.reorder, opts.match_score_min_diff, tpl_low,
+        win_low, normalize_image=opts.normalize_image, max_candidates=opts.max_candidates,
+        nms_radius=nms_low, return_win=True,
+    )
+    out = _lowband_promote(frames, out_low, acc_win, opts, win_low)
+    failed = [i for i in range(B) if i not in out]
+    if failed:
+        # The JAX package pads this batch to a power of two with repeats of
+        # its first frame to reuse a TPU compile; decisions are per frame.
+        sub = dataclasses.replace(opts, coarse_downscale=1)
+        sub_out = sub.finish(sub.dispatch([images[i] for i in failed]))
+        for j, i in enumerate(failed):
+            if j in sub_out:
+                out[i] = sub_out[j]
+    return out
+
+
+def _lowband_promote(frames, out_low, acc_win, opts, win_low):
+    """Scale low-res detections to full resolution and patch-refine each
+    corner, grouped by the refinement window of each frame's acceptance: a
+    standard acceptance refines at the caller's window, a coarse-rung one at
+    the rung's window times f (at most 17). A refined corner more than 3 px
+    from its promoted position keeps the promoted one; a grid failing the
+    full-resolution lattice gate is dropped (the caller escalates it)."""
+    if not out_low:
+        return {}
+    f = opts.f
+    cols, rows = opts.board_shape[1], opts.board_shape[0]
+    groups = {}
+    for i in out_low:
+        w_low = acc_win.get(i, win_low)
+        w_full = opts.win_size if w_low <= win_low else min(f * w_low, 17)
+        groups.setdefault(w_full, []).append(i)
+    out = {}
+    for w_full, idxs in groups.items():
+        pts_low = np.stack(
+            [np.asarray(out_low[i][0] if opts.reorder else out_low[i]) for i in idxs])
+        pts_full = pts_low * f + (f - 1) / 2.0
+        refined = _refine_fullres_group(frames, pts_full, w_full, opts.dev)
+        drift = np.linalg.norm(refined - pts_full, axis=-1, keepdims=True)
+        refined = np.where(drift <= 3.0, refined, pts_full)
+        for a, i in enumerate(idxs):
+            if not _grid_smoothness_ok(refined[a].reshape(cols, rows, 2), win=w_full):
+                continue
+            out[i] = (refined[a], out_low[i][1]) if opts.reorder else refined[a]
+    return out
 
 
 # Window hypotheses per frame on the host path: on hard frames the true
@@ -1820,6 +2309,7 @@ _COARSE_SCALES = ((3.5, 11), (6.0, 17), (9.0, 21))
 def _batch_finish(
     stage1, B, board_shape, reorder, match_score_min_diff, template_size,
     win_size=5, normalize_image=True, max_candidates=160, nms_radius=4,
+    return_win=False,
 ):
     """Host half of the batch pipeline.
 
@@ -1831,6 +2321,11 @@ def _batch_finish(
     lattice check wins. Then, for frames still failing: the repair pass,
     the coarse sigma ladder, the occlusion escalation and the
     normalized-anchor rescue.
+
+    With ``return_win`` it returns ``(out, acc_win)``: ``acc_win`` maps each
+    accepted frame to the refinement window its acceptance used (the
+    standard ``win_size``, or a coarse rung's), which the low-band promotion
+    needs to pick its full-resolution window.
     """
     gray, xy_d, score_d, fast_uv_d, fast_sc4_d, fast_ok_d = stage1
     dev = gray.device
@@ -1866,6 +2361,7 @@ def _batch_finish(
         return (g.reshape(-1, 2), np.sort(ms)[::-1])
 
     near = {}  # frame -> (margin, raw grid, raw anchor scores): near-misses
+    acc_win = {}  # frame -> refinement window its acceptance used
 
     def pick(i, grids_i, scores_i, n, out, con_i=None, win=None):
         """Best hypothesis for frame i: strict lattice check (measured
@@ -1884,6 +2380,7 @@ def _batch_finish(
             if not reorder:
                 # No anchor decision requested: first valid window wins.
                 out[int(i)] = g.reshape(-1, 2)
+                acc_win[int(i)] = win_size if win is None else win
                 return True
             ms = scores_i[h]
             ss = np.sort(ms)[::-1]
@@ -1892,6 +2389,7 @@ def _batch_finish(
                 best_pick = (margin, g, ms)
         if best_pick is not None and best_pick[0] >= match_score_min_diff:
             out[int(i)] = apply_anchor(best_pick[1], best_pick[2])
+            acc_win[int(i)] = win_size if win is None else win
             return True
         if best_pick is not None:
             cur = near.get(int(i))
@@ -2079,4 +2577,5 @@ def _batch_finish(
                 ss = np.sort(ms)[::-1]
                 if ss[0] - ss[1] >= match_score_min_diff:
                     out[int(i)] = apply_anchor(near[i][1], ms)
-    return out
+                    acc_win[int(i)] = win_size
+    return (out, acc_win) if return_win else out

@@ -14,6 +14,8 @@ import torch
 
 from .transforms import euclidean_to_homogenous, homogeneous_to_euclidean
 
+INVERSE_ITERS = 4  # fit_homography(method="inverse"): each step gains lambda_1 / lambda_2
+
 __all__ = [
     "fit_homography",
     "apply_homography",
@@ -79,6 +81,13 @@ def fit_homography(src, dst, weights=None, method="eigh"):
       near-affine lattice and anchor homographies of detection. A system
       that is not positive definite yields NaN rather than an error, as
       JAX's Cholesky does; callers mask such fits.
+    - ``"inverse"``: the ``"eigh"`` DLT's smallest eigenvector by inverse
+      iteration on A^T A shifted by a few ulps of its trace (Cholesky, then
+      ``INVERSE_ITERS`` solves). ``torch.linalg.eigh`` checks its result on
+      the host, which synchronises a CUDA stream; this does not, so queued
+      detection work can run ahead. Where the two smallest eigenvalues are
+      well apart (any fit with small residuals) it equals ``"eigh"`` to
+      rounding; a failed factorization yields NaN.
     """
     Ts = _normalization_transform(src)
     Td = _normalization_transform(dst)
@@ -111,6 +120,17 @@ def fit_homography(src, dst, weights=None, method="eigh"):
         ATA = torch.einsum("...ni,...nj->...ij", A, A)
         _, vecs = torch.linalg.eigh(ATA)
         h = vecs[..., :, 0]
+    elif method == "inverse":
+        ATA = torch.einsum("...ni,...nj->...ij", A, A)
+        tr = ATA.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None]
+        shift = 4 * torch.finfo(A.dtype).eps * tr
+        L, info = torch.linalg.cholesky_ex(ATA + shift * torch.eye(9, dtype=A.dtype, device=A.device))
+        L = torch.where((info == 0)[..., None, None], L, torch.nan)
+        x = torch.ones(ATA.shape[:-1] + (1,), dtype=A.dtype, device=A.device)
+        for _ in range(INVERSE_ITERS):
+            x = torch.cholesky_solve(x, L)
+            x = x / torch.linalg.vector_norm(x, dim=-2, keepdim=True)
+        h = x[..., 0]
     else:
         raise ValueError(f"unknown method {method!r}")
     Hn = h.reshape(*h.shape[:-1], 3, 3)

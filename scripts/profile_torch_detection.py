@@ -17,12 +17,19 @@ Builds chip_smoke.py's phase-9 input (the clean frames of
   decisions). Host wall: median of 10; device time and launches: one
   profiled run of each stage.
 
+With ``--coarse-downscale f`` (f > 1) the calls take the low-band path, and
+the stages are its own: the host stack of the full-resolution frames, the
+host decimation, the upload of the small frames, stage 1 at 1/f resolution
+(NMS radius, template and window scaled as the path scales them), the host
+finish at low resolution, and the promotion (patch gather on the host,
+patch upload, full-resolution refinement, the full-resolution lattice gate).
+
 Needs a CUDA device; run from the repository root:
 
-    python scripts/profile_torch_detection.py --out <dir>
+    python scripts/profile_torch_detection.py --out <dir> [--coarse-downscale f]
 
-Prints a summary and writes ``<out>/profile_torch_detection.json`` and a
-gzipped Chrome trace of the profiled end-to-end call.
+Prints a summary and writes ``<out>/profile_torch_detection[_f<f>].json`` and
+a gzipped Chrome trace of the profiled end-to-end call.
 """
 import argparse
 import json
@@ -43,7 +50,11 @@ BATCH = 128
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for the JSON and trace")
+    ap.add_argument("--coarse-downscale", type=int, default=1,
+                    help="f > 1: the low-band path (default 1: full resolution)")
     args = ap.parse_args()
+    f = args.coarse_downscale
+    tag = f"_f{f}" if f > 1 else ""
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -73,7 +84,8 @@ def main():
     ]
 
     def detect(images):
-        return mct.detect_chessboard_batch(images, board_shape=board, device=dev)
+        return mct.detect_chessboard_batch(images, board_shape=board, coarse_downscale=f,
+                                           device=dev)
 
     def device_work(prof):
         kernels = {}
@@ -96,12 +108,14 @@ def main():
         t0 = time.perf_counter()
         detect(batches[1])
         e2e_wall = time.perf_counter() - t0
-    prof.export_chrome_trace(os.path.join(args.out, "trace_detect_batch128.json.gz"))
+    prof.export_chrome_trace(os.path.join(args.out, f"trace_detect_batch128{tag}.json.gz"))
     dev_ms, n_launch, kernels = device_work(prof)
 
     # Stage by stage, with the inputs each stage gets in the pipeline; each
     # stage in its own profiler range and closed by a synchronise, so every
     # kernel it launched runs inside its range.
+    opts = det._BatchOptions(board, True, 0.2, 160, 4, 40, 5, True, f, dev)
+
     @with_highest_precision
     def stages(images):
         walls = {}
@@ -115,19 +129,28 @@ def main():
             walls[name] = time.perf_counter() - t0
             return r
 
-        u8 = run("upload", lambda: torch.as_tensor(np.stack(images), device=dev))
+        nms, tpl, win = det._lowband_params(opts) if f > 1 else (4, 40, 5)
+        if f > 1:
+            frames = run("stack", lambda: np.stack(images))
+            low = run("decimate", lambda: det._decimate_u8(frames, f))
+            u8 = run("upload", lambda: torch.as_tensor(low, device=dev))
+        else:
+            u8 = run("upload", lambda: torch.as_tensor(np.stack(images), device=dev))
         gray = run("gray", lambda: det._gray_from_u8(u8))
         g01 = gray / 255.0
-        run("corner_kernel", lambda: corner_cuda.corner_response_peaks(g01, 1.5, 4))
-        xy, sc = run("candidates", lambda: det.find_corner_candidates(g01, 160, 4))
+        run("corner_kernel", lambda: corner_cuda.corner_response_peaks(g01, 1.5, nms))
+        xy, sc = run("candidates", lambda: det.find_corner_candidates(g01, 160, nms))
         grids, ok = run("device_ordering", lambda: det._order_grids_device(
-            xy, sc, rows, cols, min_candidate_sep=5.0))
+            xy, sc, rows, cols, min_candidate_sep=float(nms + 1)))
         refined = run("refine", lambda: det.refine_corners_subpix(
-            g01, grids.reshape(BATCH, -1, 2), win_size=5, max_drift=3.0
+            g01, grids.reshape(BATCH, -1, 2), win_size=win, max_drift=3.0
         ).reshape(grids.shape))
-        s4 = run("anchors", lambda: det._batched_anchor_scores(gray, refined, 40))
+        s4 = run("anchors", lambda: det._batched_anchor_scores(gray, refined, tpl))
         found = run("host_finish", lambda: det._batch_finish(
-            (gray, xy, sc, refined, s4, ok), BATCH, board, True, 0.2, 40, 5))
+            (gray, xy, sc, refined, s4, ok), BATCH, board, True, 0.2, tpl, win,
+            nms_radius=nms, return_win=f > 1))
+        if f > 1:
+            found = run("promote", lambda: det._lowband_promote(frames, *found, opts, win))
         assert len(found) == BATCH, f"staged run detected {len(found)}/{BATCH}"
         return walls
 
@@ -154,6 +177,7 @@ def main():
     report = {
         "device": card,
         "batch": BATCH,
+        "coarse_downscale": f,
         "frame": list(tiled.shape[1:]),
         "board": list(board),
         "wall_s_runs": walls,
@@ -185,8 +209,8 @@ def main():
     for name, st in report["stages"].items():
         print(f"  {name:16s} host {st['host_ms_median']:8.3f} ms  device "
               f"{st.get('device_ms', float('nan')):8.3f} ms  launches {st.get('launches', 0)}")
-    with open(os.path.join(args.out, "profile_torch_detection.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    with open(os.path.join(args.out, f"profile_torch_detection{tag}.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
 
 
 if __name__ == "__main__":

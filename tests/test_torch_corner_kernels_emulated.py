@@ -11,6 +11,8 @@ plain twin does, in the same order, so the two are compared bit for bit:
 a slip in a tile, a halo row or a tap fails here without a card. The shapes
 are ragged against any tile; sigma 1.5, 3.5 and 9 take compile-time radii
 5, 11 and 27, and sigma 2.0 (radius 6) the runtime-radius instantiation.
+The low-band path's shapes (width 213, NMS radius 2) run at every radius of
+its stage 1 and coarse ladder.
 What only the card shows (nvcc's acceptance, spills, timing) is left to
 chip_smoke.py and tests/test_torch_cuda.py. Skips where no C++20 compiler
 is installed.
@@ -57,6 +59,19 @@ def test_emulated_corner_kernel_matches_twin(lib, shape, sigma, peaks):
         assert peak is None
         resp_t = corner_cuda.corner_response_fused_reference(gray, sigma)
     assert torch.equal(resp, resp_t)
+
+
+@pytest.mark.parametrize("sigma", [1.5, 3.5, 6.0, 9.0])
+@pytest.mark.parametrize("shape", [(2, 120, 213), (1, 160, 213)])
+def test_emulated_corner_kernel_at_low_band_shapes(lib, shape, sigma):
+    """The low-band path's shapes (480 x 640 decimated by 4 and 3: an odd
+    width of 213) at its NMS radius max(2, round(4 / f)) = 2, at the
+    stage-1 sigma and the coarse ladder's."""
+    gray = _gray(shape, seed=7 + sum(shape))
+    resp, peak = corner_cuda._launch(lib, 0, gray, sigma, 2, True, "corner_kernel")
+    resp_t, peak_t = corner_cuda.corner_response_peaks_reference(gray, sigma, 2)
+    assert torch.equal(resp, resp_t)
+    assert torch.equal(peak.view(torch.bool), peak_t) and bool(peak_t.any())
 
 
 def test_emulated_relaunch_is_bit_identical_and_bad_radius_is_refused(lib):

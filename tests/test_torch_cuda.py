@@ -385,3 +385,104 @@ def test_calibrate_and_bundle_adjust_on_card_match_cpu(device):
     assert not bool(ba_card[4]["polish_on_cpu"]) and int(ba_card[4]["polish_iters"]) >= 1
     np.testing.assert_allclose(float(ba_card[4]["final_cost"]), float(ba_cpu[4]["final_cost"]),
                                rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [1.5, 3.5, 6.0, 9.0])
+@pytest.mark.parametrize("shape,nms", [((128, 240, 320), 2), ((128, 160, 213), 2),
+                                       ((1, 360, 480), 4)], ids=["f2", "f3", "scale075"])
+def test_corner_kernel_matches_twin_at_new_shapes(device, shape, nms, sigma):
+    """The low-band path's decimated batches (NMS radius 2, an odd width of
+    213) and a scale_factor 0.75 frame: kernel and twin bit for bit."""
+    gray = torch.rand(shape, generator=torch.Generator(device=device).manual_seed(2),
+                      device=device)
+    resp, peak = corner_cuda.corner_response_peaks(gray, sigma, nms)
+    resp_t, peak_t = corner_cuda.corner_response_peaks_reference(gray, sigma, nms)
+    assert torch.equal(resp, resp_t) and torch.equal(peak, peak_t)
+
+
+@pytest.mark.cuda
+def test_low_band_and_scaled_detection_on_card_match_cpu(device):
+    d = np.load(DETECT_FRAMES)
+    frames = list(d["frames"][[0, 8, 12, 14]])
+    board = tuple(int(v) for v in d["board_shape"])
+    for kw in ({"coarse_downscale": 2}, {"coarse_downscale": 3}, {"scale_factor": 0.75}):
+        got = mct.detect_chessboard_batch(frames, board_shape=board, device=device, **kw)
+        ref = mct.detect_chessboard_batch(frames, board_shape=board, device="cpu", **kw)
+        assert sorted(got) == sorted(ref), kw
+        for i in ref:
+            np.testing.assert_allclose(got[i][0], ref[i][0], atol=0.01)
+            np.testing.assert_allclose(got[i][1], ref[i][1], atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2])
+def test_streamed_batches_on_card_equal_sequential_calls(device, f):
+    """Pinned uploads and one CUDA stream per batch in flight change no
+    arithmetic: every dict bit-equal to a sequential call; the caller's
+    stream is current again between results."""
+    d = np.load(DETECT_FRAMES)
+    board = tuple(int(v) for v in d["board_shape"])
+    frames = list(d["frames"])
+    batches = [frames[:6], [], frames[6:12], frames[12:]]
+    caller = torch.cuda.current_stream(device)
+    streamed = []
+    for out in mct.detect_chessboard_batches(batches, board_shape=board, coarse_downscale=f,
+                                             device=device):
+        assert torch.cuda.current_stream(device) == caller
+        streamed.append(out)
+    assert len(streamed) == len(batches) and streamed[1] == {}
+    for got, images in zip(streamed, batches):
+        want = mct.detect_chessboard_batch(images, board_shape=board, coarse_downscale=f,
+                                           device=device) if images else {}
+        assert sorted(got) == sorted(want)
+        for i in want:
+            assert np.array_equal(got[i][0], want[i][0]) and np.array_equal(got[i][1], want[i][1])
+
+
+@pytest.mark.cuda
+def test_native_lattice_builds_and_matches_numpy(device):
+    """csrc/lattice.cc builds with the host compiler on the card's machine
+    and grows the stored candidates' lattices as the numpy twin does."""
+    from multicam_calibration_tpu_torch.detection import detector, native_lattice
+
+    built = native_lattice.library()
+    assert built.path.exists() and "lattice.cc" in built.log
+    d = np.load(DETECT_FRAMES)
+    for p, s in zip(d["cand_xy"].astype(float), d["cand_score"].astype(float)):
+        rn = native_lattice.grow_lattice(p, s, 35, 0.35)
+        rp = detector._grow_lattice_numpy(p, s, 35, 0.35)
+        assert np.array_equal(rn[0], rp[0]) and (rn[3] is None) == (rp[3] is None)
+        if rn[3] is not None:
+            assert set(rn[3].values()) == set(rp[3].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2])
+def test_streamed_dispatch_does_not_synchronise(device, f, monkeypatch):
+    """After a warm-up (the anchor stage's constant tensors are copied to the
+    card once), no streamed dispatch calls a synchronising CUDA operation.
+    The low band's escalation dispatches inside a host half, which reads
+    back anyway, and is not held to it."""
+    from multicam_calibration_tpu_torch.detection import detector
+
+    d = np.load(DETECT_FRAMES)
+    board = tuple(int(v) for v in d["board_shape"])
+    batches = [list(d["frames"][:8]), list(d["frames"][8:])]
+    list(mct.detect_chessboard_batches(batches, board_shape=board, coarse_downscale=f,
+                                       device=device))
+    dispatch = detector._BatchOptions.dispatch
+
+    def strict(self, images, stage=None):
+        if stage is None:  # the host half's own calls (the low band's escalation)
+            return dispatch(self, images, stage)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(self, images, stage)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(detector._BatchOptions, "dispatch", strict)
+    out = list(mct.detect_chessboard_batches(batches, board_shape=board, coarse_downscale=f,
+                                             device=device))
+    assert [len(o) for o in out] == [8, 8]

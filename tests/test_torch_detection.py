@@ -16,6 +16,9 @@ through each stage of both packages:
   1600 products in other orders);
 - ``extend_grid`` (f64) and ``reorder_chessboard_corners`` on the ground
   truth: the same flips, scores within 1e-4;
+- the ``scale_factor`` path: the resize against ``jax.image.resize`` within
+  1e-4, and ``detect_chessboard`` at scale 0.5, 0.75 and 1.5 on a clean, a
+  hard and a blurred view with JAX's decisions, corners within 0.01 px;
 - the copied numpy host code (``order_grid_points``) and
   ``synthetic_images``: bit-identical.
 
@@ -30,6 +33,7 @@ import jax.numpy as jnp
 from multicam_calibration_tpu.detection import detector as jdet
 from multicam_calibration_tpu.detection import synthetic_images as jsyn
 from multicam_calibration_tpu.ops import homography as jhom
+import multicam_calibration_tpu_torch as tmct
 from multicam_calibration_tpu_torch.detection import detector as tdet
 from multicam_calibration_tpu_torch.detection import synthetic_images as tsyn
 from multicam_calibration_tpu_torch.ops import homography as thom
@@ -107,6 +111,25 @@ def test_fit_homography_matches_jax(method):
         thom.inv3x3(torch.as_tensor(hj)).numpy(), np.asarray(jhom.inv3x3(jnp.asarray(hj))),
         rtol=1e-10, atol=1e-12,
     )
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_inverse_iteration_fit_matches_jax_eigh(dtype):
+    """``method="inverse"`` (the eigh DLT without a host sync) against the
+    JAX package's eigh fit: rtol 1e-9 in f64; in f32, 1e-4 of each entry's
+    scale, as the other f32 homography comparisons of this file."""
+    rng = np.random.default_rng(6)
+    src = rng.uniform(-50, 50, (6, 9, 2))
+    Htrue = np.eye(3) + rng.normal(0, [[0.1, 0.1, 5], [0.1, 0.1, 5], [1e-4, 1e-4, 0]], (6, 3, 3))
+    ph = np.concatenate([src, np.ones((6, 9, 1))], -1) @ np.swapaxes(Htrue, -1, -2)
+    dst = ph[..., :2] / ph[..., 2:] + rng.normal(0, 0.1, (6, 9, 2))
+    hj = np.array(jhom.fit_homography(jnp.asarray(src), jnp.asarray(dst)))
+    ht = thom.fit_homography(torch.as_tensor(src, dtype=dtype), torch.as_tensor(dst, dtype=dtype),
+                             method="inverse").double().numpy()
+    if dtype == torch.float64:
+        np.testing.assert_allclose(ht, hj, rtol=1e-9, atol=1e-9)
+    else:
+        np.testing.assert_allclose(ht, hj, rtol=1e-4, atol=1e-4 * np.abs(hj).max())
 
 
 def test_solve_fit_of_singular_system_is_nan_not_an_error():
@@ -237,3 +260,45 @@ def test_extend_grid_and_reorder_match_jax(views, jax_stage1):
         np.testing.assert_allclose(st, sj, atol=1e-4)
         np.testing.assert_allclose(mst, msj, atol=1e-4)
         np.testing.assert_allclose(extt, np.asarray(extj), atol=1e-3)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.75, 1.5])
+def test_resize_matches_jax_image_resize(views, scale):
+    """``_resize_bilinear`` against ``jax.image.resize(..., "bilinear")`` on a
+    0-255 gray (antialiased when it shrinks): within 1e-4 (f32 products
+    summed in other orders)."""
+    import jax
+
+    gray = jdet._to_gray_f(views[0][4])
+    shape = (int(round(480 * scale)), int(round(640 * scale)))
+    ref = np.asarray(jax.image.resize(gray, shape, method="bilinear"))
+    got = tdet._resize_bilinear(torch.as_tensor(np.asarray(gray)), shape).numpy()
+    assert got.shape == shape
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.75, 1.5])
+def test_detect_chessboard_at_scale_factor_matches_jax(views, scale):
+    """The single-frame ``scale_factor`` path on a clean, a hard and a
+    blurred view: JAX's decisions, corners within 0.01 px, sorted anchor
+    scores within 1e-3; ``detect_chessboard_batch`` routes each frame
+    through it."""
+    frames, _ = views
+    picked = [frames[0], frames[4], frames[6]]
+    ref = {}
+    for i, fr in enumerate(picked):
+        r = jdet.detect_chessboard(fr, board_shape=BOARD, scale_factor=scale)
+        if r is not None:
+            ref[i] = r
+    got = tmct.detect_chessboard_batch(picked, board_shape=BOARD, scale_factor=scale,
+                                       device="cpu")
+    assert 0 in ref  # the clean view is detected at every scale
+    assert sorted(got) == sorted(ref)
+    for i in ref:
+        np.testing.assert_allclose(got[i][0], np.asarray(ref[i][0], float), atol=0.01)
+        np.testing.assert_allclose(got[i][1], np.asarray(ref[i][1], float), atol=1e-3)
+    one = tmct.detect_chessboard(picked[0], board_shape=BOARD, scale_factor=scale,
+                                 reorder=False, device="cpu")
+    one_ref = jdet.detect_chessboard(picked[0], board_shape=BOARD, scale_factor=scale,
+                                     reorder=False)
+    np.testing.assert_allclose(one, np.asarray(one_ref, float), atol=0.01)

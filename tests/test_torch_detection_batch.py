@@ -5,8 +5,8 @@
   within 0.01 px (hence the same orientation), sorted anchor scores within
   1e-3 (the stages agree to f32 rounding, tests/test_torch_detection.py);
   ``detect_chessboard`` at B = 1 and ``reorder=False``;
-- what the entry points refuse: the paths not ported yet, unknown keyword
-  arguments, and ``device=None`` without a CUDA device;
+- what the entry points refuse: unknown keyword arguments, and
+  ``device=None`` without a CUDA device on every route;
 - the JAX answers stored in ``data/detect_frames.npz`` (what the GPU smoke
   run checks) against the port's CPU run on the stored frames.
 """
@@ -78,22 +78,25 @@ def test_detect_chessboard_batch_matches_jax(views):
 
 
 def test_entry_points_refuse_what_is_not_ported(views, monkeypatch):
+    """Every option of the JAX package is ported now: what is refused is an
+    unknown keyword argument, and the CUDA default without a card, on every
+    route (full resolution, low band, scale_factor, streamed)."""
     frames, _ = views
     one = [frames[0]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmct.detect_chessboard_batch(one, board_shape=BOARD, coarse_downscale=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmct.detect_chessboard_batch(one, board_shape=BOARD, scale_factor=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmct.detect_chessboard(frames[0], board_shape=BOARD, scale_factor=0.5, device="cpu")
     with pytest.raises(TypeError, match="flags"):
         tmct.detect_chessboard_batch(one, board_shape=BOARD, flags=3, device="cpu")
     assert tmct.detect_chessboard_batch([], board_shape=BOARD, device="cpu") == {}
+    assert tmct.detect_chessboard_batch([], board_shape=BOARD, coarse_downscale=2,
+                                        device="cpu") == {}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tmct.detect_chessboard_batch(one, board_shape=BOARD)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tmct.detect_chessboard(frames[0], board_shape=BOARD)
+    for kw in ({}, {"coarse_downscale": 2}, {"scale_factor": 0.5}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmct.detect_chessboard_batch(one, board_shape=BOARD, **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            next(tmct.detect_chessboard_batches([one], board_shape=BOARD, **kw))
+    for kw in ({}, {"scale_factor": 0.5}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmct.detect_chessboard(frames[0], board_shape=BOARD, **kw)
 
 
 def test_stored_jax_answers_match_port_cpu_run():
