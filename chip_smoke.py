@@ -111,7 +111,35 @@ line each:
    growth keep the same corner set and the same lattice up to symmetry;
    the host half's ms on the stored hard frames on each route;
    ``detect_chessboard_batch`` on the stored frames equal within 1e-5 on
-   either route.
+   either route;
+16. ``calibration_uncertainty`` in f64 at the JAX package's adjusted bench
+   result (``data/bench_ba_ref.npz``): ``camera_sd`` and ``pose_sd`` within
+   1e-8 relative of JAX's (``data/analysis_ref.npz``, from
+   ``scripts/export_torch_analysis_ref.py``), ``dof`` equal, the root
+   camera's extrinsic sd 0, timed; and timed at phase 19's window (64
+   cameras, S 768 x 768);
+17. ``triangulate`` (median, and refined with sd) on the bench rig's first
+   48 frames at JAX's adjusted cameras: within 1e-8 relative + 1e-9 mm of
+   JAX's; from phase 11's adjusted result, a median error < 1 mm to the true
+   corners; a timed call at 6 x 1,048,576 points (20% of views missing, 1%
+   corrupted, made from a seed on the card) with its peak device memory;
+18. flatibration: JAX's RANSAC samples fed to
+   ``_ransac_plane_fit_from_samples`` give its inlier mask exactly and its
+   plane within 1e-10; ``flatibrate``, ``flip_z_axis`` and ``center_arena``
+   within 1e-9 of JAX's; the port's own draw the same inliers; 108,000
+   points x 256 hypotheses timed;
+19. ``RollingCalibrator``: an f64 stream (6 cameras, window 32, 6 updates
+   of 6, JAX's ``LMOptions``) with JAX's admitted / occupancy / ``n_iters``
+   / window slots every update and costs and relative extrinsics within
+   1e-8; then BASELINE.json config 4 at ``scripts/bench_streaming.py``'s
+   shape (64 cameras, window 256, batches of 8) on the f32 recipe: the
+   window filled, 12 timed updates, each launching ``ba_blocks_kernel``
+   ``n_iters`` and ``ba_cost_kernel`` ``nfev`` times (and 2 more under the
+   profiler, counted there, with each ``rolling.*`` range's share and the
+   device busy time), both kernels against their twins at an update's
+   start and timed at (64, 256, 35), the final cost at most 1.05 x the
+   noise floor over the effective mask ``msk & active``, relative rotations
+   within 0.02 rad of the truth.
 
 Then one line naming the host packages this machine has for the modules
 not ported yet (h5py, yaml, pandas, cv2, libavformat; it gates nothing),
@@ -124,6 +152,7 @@ no JAX.
 """
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -170,6 +199,77 @@ BENCH_JAX_OPTIONS = dict(
     solve_dtype="float32", lambda_escalation=3.0, grad_dtype="float32",
     gtol_rel=1e-6,
 )
+
+
+# Phases 16-19. The inputs of the parity checks are made here from seeds;
+# scripts/export_torch_analysis_ref.py makes the same ones for the JAX
+# package and stores its answers in data/analysis_ref.npz.
+TRI_FRAMES = 48  # phase 17: the bench rig's first 48 frames, 35 corners each
+TRI_BIG = dict(n_points=1 << 20, missing=0.2, corrupt=0.01, seed=3)
+FLOOR = dict(n=400, seed=5)  # phase 18's parity floor (tests/test_io_flatibration_viz.py:79-85)
+FLOOR_BIG, FLOOR_HYP = 108_000, 256  # an hour of frames at 30 fps, 256 hypotheses
+# Phase 19's f64 check: 6 updates of 6 frames into a window of 32.
+STREAM_F64 = dict(n_cameras=6, n_frames=36, seed=11, window=32, batch=6, iters=3,
+                  protect=8)
+# Phase 19: BASELINE.json config 4 at scripts/bench_streaming.py:16-19's shape.
+STREAM = dict(n_cameras=64, window=256, batch=8, timed=12, seed=11)
+STREAM_PROFILED = 2  # updates under torch.profiler after the timed ones
+PROFILE_TRIES = 3  # profiler sessions for one measurement, see profiled()
+NOISE_PX = 0.3
+# Phases 16-19's tolerances against JAX's stored answers (f64 both sides),
+# and phase 19's camera gate (tests/test_streaming.py:52).
+UNC_RTOL, TRI_RTOL, TRI_ATOL_MM, PLANE_ATOL, FLAT_ATOL = 1e-8, 1e-8, 1e-9, 1e-10, 1e-9
+STREAM_RTOL, STREAM_ROT_RAD = 1e-8, 0.02
+
+
+def floor_points(n, seed):
+    """Floor points on the plane z = 0.1 x - 0.2 y + 30 (1 mm noise), 10%
+    raised by 50-200 mm (animal body points)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-300, 300, size=(n, 2))
+    z = 0.1 * xy[:, 0] - 0.2 * xy[:, 1] + 30 + rng.standard_normal(n)
+    pts = np.column_stack([xy, z])
+    out = rng.choice(n, n // 10, replace=False)
+    pts[out, 2] += rng.uniform(50, 200, size=len(out))
+    return pts, out
+
+
+def triangulation_views(rig, frames):
+    """The rig's detections of ``frames`` as triangulate's per-camera
+    (n_points, 2) lists (NaN where unseen) and the true points."""
+    from multicam_calibration_tpu_torch.synthetic import _t6_to_T
+
+    uvs = rig.all_calib_uvs[:, :frames].reshape(rig.n_cameras, -1, 2)
+    T = np.stack([_t6_to_T(p) for p in rig.calib_poses[:frames]])
+    truth = np.einsum("fij,nj->fni", T[:, :3, :3], rig.calib_objpoints) + T[:, None, :3, 3]
+    return list(uvs), truth.reshape(-1, 3)
+
+
+def stream_start(rig, seed):
+    """Mount drift as tests/test_streaming.py:25-34 makes it: ~0.3 degree
+    rotations and ~3 mm shifts on every camera but the first."""
+    rng = np.random.default_rng(seed)
+    ext = rig.all_extrinsics.copy()
+    ext[:, :3] += rng.normal(0, 0.005, (len(ext), 3))
+    ext[:, 3:] += rng.normal(0, 3.0, (len(ext), 3))
+    ext[0] = rig.all_extrinsics[0]
+    return ext, [(K.copy(), d.copy()) for K, d in rig.all_intrinsics]
+
+
+def is_annotation(event):
+    """A profiler range the code opened (``record_function``), which the
+    trace also mirrors on the device timeline; not device work."""
+    return bool(getattr(event, "is_user_annotation", False)) or event.name.startswith(
+        ("rolling.", "lm_solve."))
+
+
+def relative_extrinsics(ext):
+    """Each camera's transform relative to camera 0 (6-vectors): the
+    gauge-free part of a rig's extrinsics."""
+    from multicam_calibration_tpu_torch.synthetic import _T_to_t6, _t6_to_T
+
+    T0_inv = np.linalg.inv(_t6_to_T(np.asarray(ext)[0]))
+    return np.stack([_T_to_t6(_t6_to_T(e) @ T0_inv) for e in np.asarray(ext)])
 
 
 def log(phase, msg):
@@ -265,20 +365,33 @@ def ptxas_of(log, kernel):
     raise AssertionError(f"no ptxas report for {kernel}:\n{log}")
 
 
+def profiled(torch, fn, what):
+    """(fn(), the profiler) of one run of fn under torch.profiler (CPU and
+    CUDA), synchronised before the session stops. A session in which the
+    profiler recorded no device work at all lost its trace, not the work:
+    it is reported and fn is run again, in PROFILE_TRIES sessions at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for k in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA and not is_annotation(e)
+               for e in prof.events()):
+            return out, prof
+        log("profiler", f"{what}: session {k + 1} recorded no device work, run again")
+    raise AssertionError(f"{what}: torch.profiler recorded no device work in "
+                         f"{PROFILE_TRIES} sessions")
+
+
 def profile_calls(torch, fn, calls=10):
     """(CUDA launches per call, device ms per call, {kernel: device us per
     call}) of fn() over ``calls`` calls under torch.profiler, after a
     warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    _, prof = profiled(torch, lambda: [fn() for _ in range(calls)], "profile_calls")
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(dev) > 0, "torch.profiler recorded no device work")
     per = {}
     for e in dev:
         key = re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
@@ -642,9 +755,9 @@ def selection_ratios(torch, dev, rig, ext, intr, poses):
 
 def hold_kernels_at(torch, start, opts, errs):
     """Both BA kernels against their twins at a solve's own start (cam,
-    poses, obs, mask, objp): over all its frames and on the last frame slab
-    of CHUNK (zero-pose padded) as the chunked layout cuts it, at phase 3's
-    tolerances. Returns a text for the log."""
+    poses, obs, mask, objp): over all its frames and, when it has more than
+    CHUNK, on the last frame slab of CHUNK (zero-pose padded) as the chunked
+    layout cuts it, at phase 3's tolerances. Returns a text for the log."""
     from multicam_calibration_tpu_torch.models import lm_core
     from multicam_calibration_tpu_torch.ops import ba_cuda
 
@@ -652,11 +765,15 @@ def hold_kernels_at(torch, start, opts, errs):
     cam64, pose64, objp64 = lm_core._kernel_params(cam, poses, objp)
     chunked = dataclasses.replace(opts, frame_chunk=CHUNK)
     prepared = lm_core._prepare(obs, mask, chunked)
-    chunk, pad, _ = lm_core._chunking(chunked, pose64.shape[0])
-    last = lm_core._pad_frames(pose64, 0, pad)[-chunk:].contiguous()
     kw = dict(f_scale=opts.f_scale, loss_linear=opts.loss == "linear")
-    shapes = {f"F={pose64.shape[0]}": (cam64, pose64, prepared.obs, prepared.msk, objp64),
-              f"last slab of {chunk} ({pad} padded)": (cam64, last, *prepared.slabs[-1], objp64)}
+    shapes = {f"C={cam64.shape[0]} F={pose64.shape[0]}":
+              (cam64, pose64, prepared.obs, prepared.msk, objp64)}
+    chunking = lm_core._chunking(chunked, pose64.shape[0])
+    if chunking is not None:  # F > CHUNK
+        chunk, pad, _ = chunking
+        last = lm_core._pad_frames(pose64, 0, pad)[-chunk:].contiguous()
+        shapes[f"last slab of {chunk} ({pad} padded)"] = (cam64, last, *prepared.slabs[-1],
+                                                          objp64)
     out = []
     for what, args in shapes.items():
         err, scaled = compare_blocks(ba_cuda.ba_chunk_blocks(*args, **kw),
@@ -676,8 +793,6 @@ def bundle_adjust_phase(torch, dev, cal, errs):
     """Phase 11: the port's bundle_adjust, from phase 10's outputs (the main
     path) and from JAX's calibrate outputs (the same start as JAX's run)."""
     from types import SimpleNamespace
-
-    from torch.profiler import ProfilerActivity, profile
 
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.models import bundle_adjustment, lm_core
@@ -746,7 +861,8 @@ def bundle_adjust_phase(torch, dev, cal, errs):
               f"f64 cost {cost} above JAX's result's {at_jax} on the same frames")
         return SimpleNamespace(uf=uf, info=info, rmse=rmse, wall=wall, nb=nb, nc=nc,
                                mixed_cost=float(mixed["final_cost"]), start=solves[0][0],
-                               opts=solves[0][1], cost=cost, at_jax=at_jax)
+                               opts=solves[0][1], cost=cost, at_jax=at_jax,
+                               result=(a_ext, a_intr, a_poses))
 
     def describe(r):
         extra = ", ".join(f"{k} {int(r.info[k])}" for k in ("polish_iters", "n_poses_repaired")
@@ -797,8 +913,7 @@ def bundle_adjust_phase(torch, dev, cal, errs):
             extra = ""
             if label == "kernel":
                 check(rs[-1].nb > 0 and rs[-1].nc > 0, "kernels not launched")
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    r = run(jax_start)
+                r, prof = profiled(torch, lambda: run(jax_start), "11 bundle_adjust kernel")
                 names = [re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
                          for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -817,6 +932,7 @@ def bundle_adjust_phase(torch, dev, cal, errs):
                   f"{label}: the mixed solve's own final cost {mixed} vs the plain route's {plain}")
     finally:
         bundle_adjustment.lm_solve = lm_solve
+    return main.result
 
 
 def noisy_batches(d, n, seed):
@@ -976,8 +1092,6 @@ def device_overlap(torch, prof):
 
 def streaming_phase(torch, dev):
     """Phase 13: streamed batches against sequential calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.ops import corner_cuda as cc
 
@@ -1037,9 +1151,7 @@ def streaming_phase(torch, dev):
         detector._BatchOptions.dispatch = dispatch
     log("13 no sync", "f=1 and f=2: no dispatch called a synchronising CUDA operation "
         "(torch.cuda.set_sync_debug_mode('error') inside each dispatch)")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        streamed(1)
-        torch.cuda.synchronize()
+    _, prof = profiled(torch, lambda: streamed(1), "13 overlap")
     ov, note = device_overlap(torch, prof)
     log("13 overlap", "f=1, one profiled streamed run: device ms of batch k+1 run during "
         "batch k's host half / its device ms before its own host half: "
@@ -1183,6 +1295,333 @@ def lattice_phase(torch, dev, lattice_build):
         f"max |corner diff| {du:.1e} px")
 
 
+def close_to(got, want, rtol, atol, what):
+    """Elementwise |got - want| <= atol + rtol |want| with NaN where ``want``
+    is NaN; returns the largest |got - want| / (atol + rtol |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
+    check(np.array_equal(np.isnan(got), np.isnan(want)), f"{what}: NaN where JAX has none")
+    ok = ~np.isnan(want)
+    diff, tol = np.abs(got[ok] - want[ok]), atol + rtol * np.abs(want[ok])
+    ratio = np.where(tol > 0, diff / np.where(tol > 0, tol, 1.0), np.where(diff > 0, np.inf, 0.0))
+    worst = float(ratio.max(initial=0.0))
+    check(worst <= 1.0, f"{what}: off JAX's by {worst:.3e} x its tolerance "
+          f"(rtol {rtol:g}, atol {atol:g})")
+    return worst
+
+
+def uncertainty_phase(torch, dev, ref):
+    """Phase 16: calibration_uncertainty at JAX's adjusted bench result, f64
+    on the card, against JAX's answer. Returns the bench rig."""
+    import multicam_calibration_tpu_torch as mct
+
+    bench = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+    rig = mct.make_synthetic_rig(**RIG)
+    uf = bench["use_frames"]
+    args = (rig.all_calib_uvs[:, uf], bench["adj_ext"],
+            list(zip(bench["adj_K"], bench["adj_dist"])), rig.calib_objpoints,
+            bench["adj_poses"])
+    out, warm = timed(torch, lambda: mct.calibration_uncertainty(*args, device=dev))
+    walls = [timed(torch, lambda: mct.calibration_uncertainty(*args, device=dev))[1]
+             for _ in range(3)]
+    w_cam = close_to(out["camera_sd"], ref["unc_camera_sd"], UNC_RTOL, 0.0, "camera_sd")
+    w_pose = close_to(out["pose_sd"], ref["unc_pose_sd"], UNC_RTOL, 0.0, "pose_sd")
+    check(out["dof"] == float(ref["unc_dof"]), f"dof {out['dof']} != JAX's {ref['unc_dof']}")
+    check(np.all(out["camera_sd"][0, 6:] == 0.0), "the root camera's extrinsic sd is not 0")
+    log("16 uncertainty", f"{rig.n_cameras} x {len(uf)} x {rig.calib_objpoints.shape[0]} at "
+        f"JAX's adjusted bench result, f64: camera_sd, pose_sd within {UNC_RTOL:g} relative of "
+        f"JAX's (worst err/tol {w_cam:.2e}, {w_pose:.2e}), dof {out['dof']:.0f} as JAX, "
+        f"sigma {out['sigma_px']:.6f} px (JAX {float(ref['unc_sigma_px']):.6f}), root "
+        f"extrinsic sd 0; wall " + walls_text(walls) + f", warm-up {warm:.4f} s")
+    return rig
+
+
+def big_triangulation_views(torch, dev, rig):
+    """TRI_BIG points on the card: the rig's board points at its poses,
+    jittered by 10 mm, projected by its true cameras with 0.3 px noise;
+    ``missing`` of the views NaN, ``corrupt`` moved by up to 300 px.
+    Returns (per-camera (n, 2) tensors, the true points)."""
+    from multicam_calibration_tpu_torch.models.bundle_adjustment import embed_calib_objpoints
+    from multicam_calibration_tpu_torch.ops import project_points
+
+    p = TRI_BIG
+    gen = torch.Generator(device=dev).manual_seed(p["seed"])
+    n = p["n_points"]
+    board = embed_calib_objpoints(rig.calib_objpoints, rig.calib_poses, device=dev).reshape(-1, 3)
+    pick = torch.randint(0, board.shape[0], (n,), generator=gen, device=dev)
+    truth = board[pick] + 10.0 * torch.randn((n, 3), generator=gen, device=dev,
+                                             dtype=torch.float64)
+    views = []
+    for ext, (K, d) in zip(rig.all_extrinsics, rig.all_intrinsics):
+        uv = project_points(truth, torch.as_tensor(ext, device=dev), K, d)
+        uv = uv + NOISE_PX * torch.randn(uv.shape, generator=gen, device=dev, dtype=uv.dtype)
+        u = torch.rand((n,), generator=gen, device=dev)
+        bad = u < p["corrupt"]
+        uv = torch.where(bad[:, None], uv + 300.0 * (2 * torch.rand(uv.shape, generator=gen,
+                         device=dev, dtype=uv.dtype) - 1), uv)
+        views.append(torch.where((u > 1 - p["missing"])[:, None], torch.nan, uv))
+    return views, truth
+
+
+def triangulation_phase(torch, dev, rig, ref, port_ba):
+    """Phase 17: triangulate against JAX on the bench rig's corners, its
+    accuracy from the port's phase 11 result, and a timed call at TRI_BIG."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.synthetic import _t6_to_T
+
+    bench = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+    views, truth = triangulation_views(rig, TRI_FRAMES)
+    jax_cams = (list(bench["adj_ext"]), list(zip(bench["adj_K"], bench["adj_dist"])))
+    med = mct.triangulate(views, *jax_cams, refine=False, device=dev)
+    (pts, sd), wall = timed(torch, lambda: mct.triangulate(views, *jax_cams, return_sd=True,
+                                                          device=dev))
+    worst = [close_to(x.cpu().numpy(), ref[k], TRI_RTOL, TRI_ATOL_MM, k) for x, k in
+             ((med, "tri_median"), (pts, "tri_points"), (sd, "tri_sd"))]
+
+    def median_error(ext, intr):
+        """Median distance of the refined points to the true ones, both in
+        camera 0's frame (the calibration's gauge is its own)."""
+        got = mct.triangulate(views, list(ext), intr, device=dev).cpu().numpy()
+        T_est, T_true = _t6_to_T(np.asarray(ext)[0]), _t6_to_T(rig.all_extrinsics[0])
+        a = got @ T_est[:3, :3].T + T_est[:3, 3]
+        b = truth @ T_true[:3, :3].T + T_true[:3, 3]
+        err = np.linalg.norm(a - b, axis=-1)
+        return float(np.nanmedian(err)), int(np.isfinite(err).sum())
+
+    port_err, n_port = median_error(port_ba[0], port_ba[1])
+    check(port_err < 1.0, f"median error {port_err:.4f} mm to the true board points")
+    jax_err, _ = median_error(*jax_cams)
+
+    big, big_truth = big_triangulation_views(torch, dev, rig)
+    cams = (list(rig.all_extrinsics), rig.all_intrinsics)
+    mct.triangulate(big, *cams, return_sd=True, device=dev)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    (bp, bsd), big_wall = timed(torch, lambda: mct.triangulate(big, *cams, return_sd=True,
+                                                              device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    med_wall = timed(torch, lambda: mct.triangulate(big, *cams, refine=False, device=dev))[1]
+    berr = torch.linalg.vector_norm(bp - big_truth, dim=-1)
+    ok = torch.isfinite(berr)
+    big_err = float(berr[ok].median())
+    n_sd = int(torch.isfinite(bsd).all(-1).sum())
+    check(big_err < 1.0, f"TRI_BIG: median error {big_err:.4f} mm")
+    log("17 triangulation", f"{len(views)} cameras x {len(truth)} corners ({TRI_FRAMES} bench "
+        f"frames) at JAX's adjusted cameras: median (refine=False), points and sd within "
+        f"{TRI_RTOL:g} relative + {TRI_ATOL_MM:g} mm of JAX's (worst err/tol "
+        + ", ".join(f"{w:.2e}" for w in worst) + f"), wall {wall:.4f} s; median error to the "
+        f"true corners {port_err:.4f} mm from phase 11's result ({n_port} points; {jax_err:.4f} "
+        f"at JAX's); {len(big)} x {TRI_BIG['n_points']} points ({TRI_BIG['missing']:.0%} of "
+        f"views missing, {TRI_BIG['corrupt']:.0%} corrupted): refine + sd wall {big_wall:.4f} s, "
+        f"median only {med_wall:.4f} s, peak device memory {peak / 2**30:.3f} GiB, "
+        f"{int(ok.sum())} points finite ({n_sd} with an sd), median error {big_err:.4f} mm")
+
+
+def flatibration_phase(torch, dev, ref):
+    """Phase 18: flatibration against JAX (its samples fed in), the port's
+    own draw, and a timed fit of FLOOR_BIG points."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.models import flatibration
+
+    pts, _ = floor_points(**FLOOR)
+    a, b, t, mask = flatibration._ransac_plane_fit_from_samples(
+        torch.as_tensor(pts, device=dev), torch.as_tensor(ref["floor_idx"], device=dev), 10.0)
+    check(np.array_equal(mask.cpu().numpy(), ref["floor_mask"]), "inlier mask differs from JAX's")
+    w_plane = close_to(torch.stack([a, b, t]).cpu().numpy(), ref["floor_plane"], 0.0,
+                       PLANE_ATOL, "plane")
+    transform = mct.flatibrate(pts, device=dev)
+    worst = [close_to(got, ref[k], 0.0, FLAT_ATOL, k) for got, k in (
+        (transform, "floor_transform"),
+        (mct.flip_z_axis(ref["floor_transform"], device=dev), "floor_flip"),
+        (mct.center_arena(ref["floor_transform"], pts, device=dev), "floor_center"))]
+    own = flatibration.ransac_plane_fit(pts, device=dev)[3].cpu().numpy()
+    check(np.array_equal(own, ref["floor_mask"]), "the port's own draw: inliers differ")
+
+    big, out = floor_points(FLOOR_BIG, FLOOR["seed"])
+    call = lambda: mct.flatibrate(big, n_hypotheses=FLOOR_HYP, device=dev)  # noqa: E731
+    tr, warm = timed(torch, call)
+    walls = [timed(torch, call)[1] for _ in range(5)]
+    flat = mct.apply_rigid_transform(torch.as_tensor(tr), torch.as_tensor(big)).numpy()
+    inl = np.setdiff1d(np.arange(FLOOR_BIG), out)
+    z = float(np.median(np.abs(flat[inl, 2])))
+    check(z < 1.0, f"flattened floor: median |z| {z:.4f} mm")
+    log("18 flatibration", f"{FLOOR['n']} points with JAX's samples: inlier mask as JAX "
+        f"({int(ref['floor_mask'].sum())}), plane within {PLANE_ATOL:g} (err/tol {w_plane:.2e}); "
+        f"flatibrate, flip_z_axis, center_arena within {FLAT_ATOL:g} (err/tol "
+        + ", ".join(f"{w:.2e}" for w in worst) + "); the port's own draw: the same inliers; "
+        f"{FLOOR_BIG} points x {FLOOR_HYP} hypotheses: wall " + walls_text(walls)
+        + f", warm-up {warm:.4f} s, median |z| of the flattened inliers {z:.4f} mm")
+
+
+def rolling_phase(torch, dev, ref, errs):
+    """Phase 19: RollingCalibrator, the f64 check against JAX and BASELINE
+    config 4 at bench_streaming.py's shape through both BA kernels."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.convert import lm_options_from_jax
+    from multicam_calibration_tpu_torch.models import lm_core, streaming
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+
+    solves = []  # (start arrays, options, info) of every lm_solve of an update
+    lm_solve = streaming.lm_solve
+
+    def recording_lm_solve(*args, **kwargs):
+        out = lm_solve(*args, **kwargs)
+        solves.append((args[:5], args[5], out[2]))
+        return out
+
+    streaming.lm_solve = recording_lm_solve
+    try:
+        # The f64 check: JAX's options carried over, per-update state as JAX's.
+        p = STREAM_F64
+        rig = mct.make_synthetic_rig(n_cameras=p["n_cameras"], n_frames=p["n_frames"],
+                                     noise_px=NOISE_PX, dropout=0.25, seed=p["seed"])
+        ext, intr = stream_start(rig, p["seed"])
+        opts = lm_options_from_jax(json.loads(str(ref["stream_options"])))
+        rc = mct.RollingCalibrator(ext, intr, rig.calib_objpoints, window=p["window"],
+                                   protect_recent=p["protect"], lm_options=opts, device=dev)
+        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        worst = [0.0, 0.0]
+        for k, lo in enumerate(range(0, p["n_frames"], p["batch"])):
+            info = rc.update(rig.all_calib_uvs[:, lo:lo + p["batch"]])
+            for key in ("n_iters", "admitted", "occupancy"):
+                check(info[key] == int(ref[f"stream_{key}"][k]),
+                      f"f64 update {k}: {key} {info[key]} != JAX's {ref[f'stream_{key}'][k]}")
+            check(np.array_equal(rc._order, ref["stream_order"][k]),
+                  f"f64 update {k}: window slots differ from JAX's")
+            worst[0] = max(worst[0], close_to(info["cost"], ref["stream_cost"][k],
+                                              STREAM_RTOL, 0.0, f"f64 update {k}: cost"))
+            worst[1] = max(worst[1], close_to(
+                relative_extrinsics(rc.calibration()[0]),
+                relative_extrinsics(ref["stream_ext"][k]), STREAM_RTOL, STREAM_RTOL,
+                f"f64 update {k}: relative extrinsics"))
+        check((ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before,
+              "the f64 stream launched a BA kernel")
+        log("19 rolling f64", f"{p['n_cameras']} cameras, window {p['window']}, "
+            f"{p['n_frames'] // p['batch']} updates of {p['batch']} with JAX's LMOptions "
+            f"(plain torch route, no kernel): admitted, occupancy, n_iters and window slots "
+            f"as JAX's every update; costs and relative extrinsics within {STREAM_RTOL:g} of "
+            f"JAX's (worst err/tol {worst[0]:.2e}, {worst[1]:.2e}); last cost {info['cost']:.6f}")
+
+        # BASELINE config 4 at bench_streaming.py's shape.
+        p = STREAM
+        rig = mct.make_synthetic_rig(n_cameras=p["n_cameras"],
+                                     n_frames=p["window"] + p["batch"] * 16,
+                                     noise_px=NOISE_PX, dropout=0.25, seed=p["seed"])
+        rc = mct.RollingCalibrator(rig.all_extrinsics, rig.all_intrinsics, rig.calib_objpoints,
+                                   window=p["window"], device=dev)
+        check(lm_core._cuda_block_build(rc._opts, torch.float64, rc._objp_d)
+              and lm_core._cuda_cost_eval(rc._opts, torch.float64, rc._objp_d),
+              f"the recipe on CUDA does not reach both kernels: {rc._opts}")
+        # Cycled: an update re-run after a lost profiler session may take the
+        # rig's first frames again once the others are used.
+        batches = itertools.cycle([rig.all_calib_uvs[:, f:f + p["batch"]]
+                                   for f in range(0, rig.n_frames, p["batch"])])
+        fill_t0 = time.perf_counter()
+        n_fill = 0
+        while rc.occupancy < p["window"]:
+            rc.update(next(batches))
+            n_fill += 1
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - fill_t0
+
+        rows = []
+        for k in range(p["timed"]):
+            solves.clear()
+            nb0, nc0 = ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches
+            info, wall = timed(torch, lambda: rc.update(next(batches)))
+            nb = ba_cuda.ba_chunk_blocks.launches - nb0
+            nc = ba_cuda.ba_chunk_cost.launches - nc0
+            (start, _, sinfo), = solves
+            check(nb == sinfo["n_iters"] == info["n_iters"] and nc == sinfo["nfev"],
+                  f"update {k}: block launches {nb}, cost launches {nc}; n_iters "
+                  f"{sinfo['n_iters']}, nfev {sinfo['nfev']}")
+            rows.append((wall, info, nb, nc, int(start[3].sum())))
+            if k == 0:
+                held = hold_kernels_at(torch, start, rc._opts, errs)
+                cam64, pose64, objp64 = lm_core._kernel_params(start[0], start[1], start[4])
+                args = (cam64, pose64, *ba_cuda.ba_prepare_obs(start[2], start[3]), objp64)
+                kt = {"ba_blocks_kernel": (ba_cuda.ba_chunk_blocks,
+                                           ba_cuda.ba_chunk_blocks_reference),
+                      "ba_cost_kernel": (ba_cuda.ba_chunk_cost, ba_cuda.ba_chunk_cost_reference)}
+                ktimes = {name: (cuda_ms(torch, lambda f=f: f(*args)),
+                                 cuda_ms(torch, lambda r=r: r(*args)),
+                                 profile_calls(torch, lambda f=f: f(*args))[1])
+                          for name, (f, r) in kt.items()}
+                kbounds = ba_bounds(p["n_cameras"], p["window"], rig.calib_objpoints.shape[0],
+                                    int(start[3].sum()))
+        walls = [r[0] for r in rows]
+        cost, n_obs = rows[-1][1]["cost"], rows[-1][4]
+        floor_cost = 2 * n_obs * 0.5 * NOISE_PX**2 * (1 - 0.75 * NOISE_PX**2)
+        check(cost <= 1.05 * floor_cost, f"final cost {cost:.1f} above 1.05 x the noise floor "
+              f"{floor_cost:.1f} of its {n_obs} effective observations")
+        rel_est = relative_extrinsics(rc.calibration()[0])
+        rel_true = relative_extrinsics(rig.all_extrinsics)
+        rot = float(np.abs(rel_est[:, :3] - rel_true[:, :3]).max())
+        trans = float(np.linalg.norm(rel_est[:, 3:] - rel_true[:, 3:], axis=-1).max())
+        check(rot <= STREAM_ROT_RAD, f"relative rotations off the truth by {rot:.4f} rad")
+
+        prof_counts, splits = [], []
+
+        def profiled_update():
+            solves.clear()
+            return timed(torch, lambda: rc.update(next(batches)))
+
+        for _ in range(STREAM_PROFILED):
+            (_, pwall), prof = profiled(torch, profiled_update, "19 rolling update")
+            events = prof.events()
+            dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+            names = [re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name) for e in dev_ev]
+            dev_ev = [e for e in dev_ev if not is_annotation(e)]
+            (_, _, sinfo), = solves
+            nk = (names.count("ba_blocks_kernel"), names.count("ba_cost_kernel"))
+            check(nk == (sinfo["n_iters"], sinfo["nfev"]), f"profiler: kernel launches {nk}, "
+                  f"n_iters {sinfo['n_iters']}, nfev {sinfo['nfev']}")
+            prof_counts.append(f"{nk[0]}/{nk[1]} of {len(dev_ev)} device ops")
+            ranges = {}
+            for e in events:
+                if e.name.startswith("rolling.") and e.device_type != torch.autograd.DeviceType.CUDA:
+                    ranges[e.name] = ranges.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+            top = sorted(((a.key, a.self_cpu_time_total / 1e3) for a in prof.key_averages()
+                          if a.key.startswith("aten::")), key=lambda kv: -kv[1])[:6]
+            splits.append(f"wall {1e3 * pwall:.1f} ms: " + ", ".join(
+                f"{k.removeprefix('rolling.')} {v:.1f}" for k, v in ranges.items())
+                + f"; device busy {busy:.2f} ms ({busy / (1e3 * pwall):.1%}); top host ops (self) "
+                + ", ".join(f"{k} {v:.1f}" for k, v in top))
+    finally:
+        streaming.lm_solve = lm_solve
+
+    # calibration_uncertainty at this window (64 cameras: S is 768 x 768).
+    mask = solves[-1][0][3].cpu().numpy()
+    uvs = np.where(mask[..., None], rc._obs_d.cpu().numpy(), np.nan)
+    ext, intr = rc.calibration()
+    ucall = lambda: mct.calibration_uncertainty(  # noqa: E731
+        uvs, ext, intr, rig.calib_objpoints, rc._poses_d.cpu().numpy(), device=dev)
+    unc, uwarm = timed(torch, ucall)
+    uwalls = [timed(torch, ucall)[1] for _ in range(3)]
+    check(np.all(unc["camera_sd"][0, 6:] == 0.0) and np.all(np.isfinite(unc["camera_sd"])),
+          "window uncertainty: root sd not 0 or non-finite sd")
+
+    log("19 rolling", f"{p['n_cameras']} cameras, window {p['window']}, batches of "
+        f"{p['batch']} (BASELINE.json config 4, scripts/bench_streaming.py:16-19), f32 recipe: "
+        f"fill {n_fill} updates in {fill_s:.3f} s; {p['timed']} timed updates: median "
+        + walls_text(walls).removeprefix("median ") + "; per update n_iters/nfev = block/cost "
+        "launches " + ", ".join(f"{r[1]['n_iters']}/{r[2]}/{r[3]}" for r in rows)
+        + f"; costs " + ", ".join(f"{r[1]['cost']:.1f}" for r in rows)
+        + f"; final cost {cost:.1f} <= 1.05 x noise floor {floor_cost:.1f} over {n_obs} "
+        f"effective observations (ratio {cost / floor_cost:.4f}); relative extrinsics vs truth: "
+        f"rotation max {rot:.2e} rad, translation max {trans:.4f} mm; profiler "
+        "ba_blocks/ba_cost launches = n_iters/nfev on " + ", ".join(prof_counts)
+        + "; profiled updates (ms): " + " | ".join(splits))
+    log("19 kernels", f"at the window's first timed update, C={p['n_cameras']} F={p['window']} "
+        f"N={rig.calib_objpoints.shape[0]}: " + held + "; ms per call wrapper vs twin, kernels "
+        "alone (profiler), bound: " + "; ".join(
+            f"{k} {a:.4f} vs {b:.4f}, alone {1e3 * dev_ms:.2f} us, bound {kbounds[k][0]:.5f} "
+            f"ms ({kbounds[k][1]})" for k, (a, b, dev_ms) in ktimes.items()))
+    log("16 uncertainty window", f"phase 19's window ({p['n_cameras']} cameras x {p['window']} "
+        f"frames, S {12 * p['n_cameras']} x {12 * p['n_cameras']}), f64: wall "
+        + walls_text(uwalls) + f", warm-up {uwarm:.4f} s, sigma {unc['sigma_px']:.4f} px")
+
+
 def host_packages():
     """Which host packages the modules not ported yet would need are here:
     h5py, yaml, pandas and cv2 by import, libavformat by its library."""
@@ -1210,6 +1649,11 @@ def host_packages():
 
 
 def main():
+    # Keep CUPTI attached between torch.profiler sessions: its teardown after
+    # each session and re-init at the next is fragile (torch turns it off
+    # itself for CUDA graphs, torch/profiler/profiler.py), and this script
+    # opens many sessions in one process.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -1381,11 +1825,16 @@ def main():
 
     detect_phases(torch, dev, builds["corner_kernels"], launches, errs, times, bounds)
     cal = calibrate_phase(torch, dev)
-    bundle_adjust_phase(torch, dev, cal, errs)
+    port_ba = bundle_adjust_phase(torch, dev, cal, errs)
     lowband_phase(torch, dev, errs)
     streaming_phase(torch, dev)
     scale_phase(torch, dev, errs)
     lattice_phase(torch, dev, builds["lattice"])
+    analysis = np.load(os.path.join(DATA, "analysis_ref.npz"))
+    bench_rig = uncertainty_phase(torch, dev, analysis)
+    triangulation_phase(torch, dev, bench_rig, analysis, port_ba)
+    flatibration_phase(torch, dev, analysis)
+    rolling_phase(torch, dev, analysis, errs)
     log("host packages", host_packages())
 
     print(json.dumps({"kernels": [

@@ -9,8 +9,11 @@ over the Schur-LM engine ``models.lm_core``) with its geometry ops and
 masked reductions, the synthetic rig, the stage metrics
 (``utils.metrics``), and chessboard detection (``detection.detector``:
 the batch path at full resolution and in the low band, streamed batches,
-the single-frame ``scale_factor`` path, the native lattice growth); see
-ROADMAP.md for the rest.
+the single-frame ``scale_factor`` path, the native lattice growth), and
+what a lab runs after bundle adjustment: triangulation
+(``ops.triangulation``), flatibration, calibration uncertainty and rolling
+re-calibration (``models.streaming.RollingCalibrator``); see ROADMAP.md for
+the rest.
 
 Entry points take numpy input and run on the CUDA device unless the caller
 passes ``device="cpu"`` (or CPU tensors).
@@ -49,6 +52,14 @@ from .models.bundle_adjustment import (
     serialize_params,
 )
 from .models.lm_core import LMOptions, lm_solve
+from .models.flatibration import (
+    center_arena,
+    flatibrate,
+    flip_z_axis,
+    get_floor_points,
+)
+from .models.streaming import RollingCalibrator
+from .models.uncertainty import calibration_uncertainty
 from .synthetic import make_synthetic_rig
 
 __all__ = list(_ops_all) + [
@@ -79,4 +90,10 @@ __all__ = list(_ops_all) + [
     "LMOptions",
     "lm_solve",
     "make_synthetic_rig",
+    "RollingCalibrator",
+    "calibration_uncertainty",
+    "flatibrate",
+    "flip_z_axis",
+    "center_arena",
+    "get_floor_points",
 ]

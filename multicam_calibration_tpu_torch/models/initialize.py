@@ -329,6 +329,18 @@ def _estimate_pose_impl(calib_uvs, K, dist, objpoints):
     return torch.where(mask[:, None], poses, torch.nan)
 
 
+def _batched_estimate_pose(calib_uvs, K, dist, objpoints):
+    """Board poses of every camera at once: (C, B, N, 2) detections, (C, 3, 3)
+    K and (C, 5) distortion -> (C, B, 6), NaN rows where the board is not
+    fully detected. ``torch.vmap`` of :func:`_estimate_pose_impl` over the
+    camera axis (the JAX package's ``jit(vmap(_estimate_pose_impl))``), so
+    every step runs batched over all cameras instead of once per camera; it
+    equals the per-camera loop."""
+    return torch.vmap(_estimate_pose_impl, in_dims=(0, 0, 0, None))(
+        calib_uvs, K, dist, objpoints
+    )
+
+
 def _pick(device, *xs):
     """The device to run on: ``device`` if given, else that of the first
     tensor argument, else the CUDA device (raises without one)."""
@@ -358,14 +370,16 @@ def estimate_pose(calib_uvs, calib_objpoints, camera_matrix, dist_coeffs,
 
 def estimate_pose_batch(all_calib_uvs, calib_objpoints, all_camera_matrices,
                         all_dist_coeffs, device=None):
-    """Board poses for all cameras: (C, F, 6), camera by camera through
-    :func:`estimate_pose`'s program (the same per-camera results)."""
+    """Board poses for all cameras: (C, F, 6), all cameras at once through
+    :func:`_batched_estimate_pose` (the per-camera results of
+    :func:`estimate_pose`)."""
     dev = _pick(device, all_calib_uvs)
-    return torch.stack([
-        estimate_pose(all_calib_uvs[c], calib_objpoints, all_camera_matrices[c],
-                      all_dist_coeffs[c], device=dev)
-        for c in range(len(all_camera_matrices))
-    ])
+    return _batched_estimate_pose(
+        _t(all_calib_uvs, dev),
+        torch.stack([_t(K, dev) for K in all_camera_matrices]),
+        torch.stack([_t(d, dev).reshape(-1) for d in all_dist_coeffs]),
+        _t(calib_objpoints, dev),
+    )
 
 
 def _sample_frames(calib_uvs, n_samples, seed, camera=None):

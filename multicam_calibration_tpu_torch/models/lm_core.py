@@ -771,6 +771,16 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
     return dcam.to(dtype), dpose.to(dtype)
 
 
+def _diag_embed(diags):
+    """(..., n) -> (..., n, n) diagonal matrices."""
+    return torch.diag_embed(diags)
+
+
+def _blockdiag_embed(blocks, C):
+    """(C, 12, 12) -> (12C, 12C) block-diagonal."""
+    return torch.block_diag(*blocks[:C])
+
+
 @with_highest_precision
 def lm_solve(
     cam_params,

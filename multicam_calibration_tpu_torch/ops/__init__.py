@@ -6,7 +6,9 @@ from .transforms import (
     euclidean_to_homogenous,
     get_transformation_matrix,
     get_transformation_vector,
+    get_projection_matrix,
     homogeneous_to_euclidean,
+    rigid_transform_from_correspondences,
     se3_compose,
     se3_inverse,
     se3_inverse_vector,
@@ -28,6 +30,7 @@ from .projection import (
     undistort_points,
 )
 from .reductions import masked_mean, masked_median, nanmedian
+from .triangulation import triangulate, triangulate_dlt, triangulate_pairs
 
 __all__ = [
     "rodrigues",
@@ -39,7 +42,9 @@ __all__ = [
     "euclidean_to_homogenous",
     "get_transformation_matrix",
     "get_transformation_vector",
+    "get_projection_matrix",
     "homogeneous_to_euclidean",
+    "rigid_transform_from_correspondences",
     "se3_compose",
     "se3_inverse",
     "se3_inverse_vector",
@@ -58,4 +63,7 @@ __all__ = [
     "masked_mean",
     "masked_median",
     "nanmedian",
+    "triangulate",
+    "triangulate_dlt",
+    "triangulate_pairs",
 ]

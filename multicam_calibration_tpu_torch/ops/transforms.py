@@ -1,9 +1,9 @@
 """SE(3) rigid-transform ops, batched over leading dims.
 
-Counterpart of ``multicam_calibration_tpu/ops/transforms.py``, limited to
-what projection, initialization and bundle adjustment use: 6-vector <-> 4x4
-matrix conversion, the analytic SE(3) inverse and composition, point
-application and homogeneous-coordinate helpers.
+Counterpart of ``multicam_calibration_tpu/ops/transforms.py``: 6-vector <->
+4x4 matrix conversion, the analytic SE(3) inverse and composition, point
+application, homogeneous-coordinate helpers, the weighted Kabsch fit and
+projection matrices.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ __all__ = [
     "apply_rigid_transform",
     "euclidean_to_homogenous",
     "homogeneous_to_euclidean",
+    "rigid_transform_from_correspondences",
+    "get_projection_matrix",
 ]
 
 
@@ -82,3 +84,50 @@ def apply_rigid_transform(transform, points):
     R = transform[..., :3, :3]
     t = transform[..., :3, 3]
     return torch.einsum("...ij,...j->...i", R, points) + t
+
+
+def rigid_transform_from_correspondences(source_points, target_points, weights=None):
+    """Weighted Kabsch alignment: best-fit rigid transform source -> target.
+
+    ``weights`` (n,) optionally weights each correspondence. Returns
+    ``(t6, rmsd)``. The rotation V D U^T, with D fixing the
+    reflection by the sign of det(V U^T), does not depend on the signs the
+    SVD gives its singular vectors: flipping a pair (u_i, v_i) leaves each
+    rank-one term v_i u_i^T, and det(V U^T), unchanged.
+    """
+    source = source_points.reshape(-1, 3)
+    target = target_points.reshape(-1, 3)
+    if weights is None:
+        w = torch.ones(source.shape[0], dtype=source.dtype, device=source.device)
+    else:
+        w = torch.as_tensor(weights, device=source.device).reshape(-1).to(source.dtype)
+    wsum = torch.sum(w)
+    mu_s = torch.einsum("n,ni->i", w, source) / wsum
+    mu_t = torch.einsum("n,ni->i", w, target) / wsum
+    s_c = source - mu_s
+    t_c = target - mu_t
+    H = torch.einsum("n,ni,nj->ij", w, s_c, t_c)
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+    D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    R = Vt.T @ D @ U.T
+    translation = mu_t - R @ mu_s
+    t6 = torch.cat([so3_log(R), translation])
+    transformed = s_c @ R.T + mu_t
+    rmsd = torch.sqrt(
+        torch.einsum("n,n->", w, torch.sum((transformed - target) ** 2, -1)) / wsum
+    )
+    return t6, rmsd
+
+
+def get_projection_matrix(extrinsics, intrinsics):
+    """P = K [R|t] of shape (..., 3, 4) from 6-vector extrinsics (a tensor).
+
+    ``intrinsics`` is the reference-style tuple ``(camera_matrix,
+    dist_coefs)`` or just the camera matrix; it is moved to the dtype and
+    device of ``extrinsics``.
+    """
+    if isinstance(intrinsics, (tuple, list)):
+        intrinsics = intrinsics[0]
+    K = torch.as_tensor(intrinsics, dtype=extrinsics.dtype, device=extrinsics.device)
+    return K @ get_transformation_matrix(extrinsics)[..., :3, :]

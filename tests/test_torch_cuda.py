@@ -486,3 +486,66 @@ def test_streamed_dispatch_does_not_synchronise(device, f, monkeypatch):
     out = list(mct.detect_chessboard_batches(batches, board_shape=board, coarse_downscale=f,
                                              device=device))
     assert [len(o) for o in out] == [8, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["triangulate", "calibration_uncertainty", "flatibrate"])
+def test_analysis_on_card_matches_cpu(device, entry):
+    """The analysis entry points in f64 on the card against the port's own
+    CPU run of the same inputs, NaN in the same places: triangulate rtol
+    1e-9 (atol 1e-9 mm), the flatibration transform atol 1e-12, and
+    calibration_uncertainty rtol 1e-8. The standard errors are conditioned
+    so that rounding alone moves them by ~1e-9 on this rig: on the CPU,
+    poses scaled by 1 + 1e-15 move camera_sd by 5.5e-10 relative, and the
+    card, summing in other orders, differed from the CPU by 2.5e-9 (1e-8 is
+    also the tolerance against the JAX package)."""
+    rig = mct.make_synthetic_rig(n_cameras=4, n_frames=24, noise_px=0.3, dropout=0.2, seed=9)
+    ext, intr = rig.all_extrinsics, rig.all_intrinsics
+    if entry == "triangulate":
+        views = list(rig.all_calib_uvs.reshape(4, -1, 2))
+
+        def run(dev):
+            med = mct.triangulate(views, list(ext), intr, refine=False, device=dev)
+            pts, sd = mct.triangulate(views, list(ext), intr, return_sd=True, device=dev)
+            return [x.cpu().numpy() for x in (med, pts, sd)]
+        tol = dict(rtol=1e-9, atol=1e-9)
+    elif entry == "calibration_uncertainty":
+        def run(dev):
+            out = mct.calibration_uncertainty(rig.all_calib_uvs, ext, intr, rig.calib_objpoints,
+                                              rig.calib_poses, device=dev)
+            return [out["camera_sd"], out["pose_sd"], np.array(out["sigma_px"])]
+        tol = dict(rtol=1e-8, atol=0)
+    else:
+        rng = np.random.default_rng(5)
+        pts = np.column_stack([rng.uniform(-300, 300, (400, 2)), rng.normal(30, 1, 400)])
+        pts[:40, 2] += 100.0
+
+        def run(dev):
+            return [mct.flatibrate(pts, device=dev)]
+        tol = dict(rtol=0, atol=1e-12)
+    for card, cpu in zip(run(device), run("cpu")):
+        np.testing.assert_allclose(card, cpu, equal_nan=True, **tol)
+
+
+@pytest.mark.cuda
+def test_rolling_update_on_card_launches_both_kernels(device, monkeypatch):
+    """A small RollingCalibrator on the card takes the f32 recipe: each update
+    launches ba_blocks_kernel n_iters times and ba_cost_kernel nfev times."""
+    from multicam_calibration_tpu_torch.models import streaming
+
+    rig = mct.make_synthetic_rig(n_cameras=4, n_frames=24, noise_px=0.3, dropout=0.15, seed=21)
+    infos = []
+    lm_solve = streaming.lm_solve
+    monkeypatch.setattr(streaming, "lm_solve",
+                        lambda *a, **k: infos.append(lm_solve(*a, **k)) or infos[-1])
+    cal = mct.RollingCalibrator(rig.all_extrinsics, rig.all_intrinsics, rig.calib_objpoints,
+                                window=16, device=device)
+    assert cal._opts.block_dtype == "float32" and cal._opts.lambda_escalation == 3.0
+    for lo in range(0, 24, 6):
+        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        info = cal.update(rig.all_calib_uvs[:, lo:lo + 6])
+        solve = infos[-1][2]
+        assert ba_cuda.ba_chunk_blocks.launches - before[0] == solve["n_iters"] == info["n_iters"]
+        assert ba_cuda.ba_chunk_cost.launches - before[1] == solve["nfev"]
+        assert np.isfinite(info["cost"])
+    assert cal.occupancy == 16
