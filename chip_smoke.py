@@ -139,10 +139,34 @@ line each:
    device busy time), both kernels against their twins at an update's
    start and timed at (64, 256, 35), the final cost at most 1.05 x the
    noise floor over the effective mask ``msk & active``, relative rotations
-   within 0.02 rad of the truth.
+   within 0.02 rad of the truth;
+20. videos to a saved calibration (``video_phase``): 6 cameras x 600
+   frames of 640 x 480 rendered from ``video_rig`` with each camera's lens
+   and written as MJPEG .avi by OpenCV's built-in writer (one process per
+   camera); ``detection.video._detect_video`` on the port's ``open_video``
+   reader (OpenCV's here: no libav) at its default batch for every camera,
+   one process per camera at once, and at batches 64, 128 and 256 for the
+   first 256 frames of camera 0 alone, frames/s with decode and
+   corner-kernel launches per camera; the same detections at every batch;
+   camera 0's detections bit-equal to ``detect_chessboard_batch`` on the
+   same decoded frames; none on a board-less frame, rate >= 0.98 and
+   corner RMS < 0.6 px on detectable views, at most 5% of detections in a
+   wrong lattice order; ``_assemble_aligned`` ->
+   ``cli._calibrate_from_detections`` (calibrate -> bundle_adjust ->
+   compute_residual_metric -> save_calibration) with the corner and both
+   BA kernels launched (counts from 0), BA wrapper calls and, under the
+   profiler, kernel launches equal to what the solves account for
+   (``n_iters``, ``nfev``), both BA kernels against their twins at the
+   first kernel-route solve's start, reprojection RMSE,
+   residual medians and camera poses relative to camera 0 against the
+   truth; JSON (1e-12) and JARVIS round trips, GIMBAL's ImportError naming
+   h5py (a round trip where h5py exists); the CLI's ``benchmark`` (platform
+   gpu, final cost at most (1 + 1e-5) x the JAX package's on its 995
+   frames), ``export`` json -> jarvis -> json and
+   ``calibrate``'s ImportError naming h5py.
 
-Then one line naming the host packages this machine has for the modules
-not ported yet (h5py, yaml, pandas, cv2, libavformat; it gates nothing),
+Then one line naming the host packages this machine has (h5py, yaml,
+pandas, cv2, libavformat; it gates nothing),
 one JSON line describing each kernel, with its bound on this card
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
 their type: 67 TFLOP/s f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet),
@@ -270,6 +294,31 @@ def relative_extrinsics(ext):
 
     T0_inv = np.linalg.inv(_t6_to_T(np.asarray(ext)[0]))
     return np.stack([_T_to_t6(_t6_to_T(e) @ T0_inv) for e in np.asarray(ext)])
+
+
+def transforms(ext):
+    """4 x 4 transforms of 6-vector extrinsics (numpy)."""
+    from multicam_calibration_tpu_torch.synthetic import _t6_to_T
+
+    return np.stack([_t6_to_T(e) for e in np.asarray(ext)])
+
+
+def relative_pose_errors(ext, ext_true):
+    """Per camera, the rotation angle (rad) and translation distance (mm)
+    between its pose relative to camera 0 and the true one: gauge-free, and
+    well defined at half turns, where axis-angle vectors are not."""
+    from multicam_calibration_tpu_torch.synthetic import _t6_to_T
+
+    def rel(e):
+        T0_inv = np.linalg.inv(_t6_to_T(np.asarray(e)[0]))
+        return [_t6_to_T(x) @ T0_inv for x in np.asarray(e)]
+
+    rot, trans = [], []
+    for A, B in zip(rel(ext), rel(ext_true)):
+        cos = (np.trace(A[:3, :3] @ B[:3, :3].T) - 1) / 2
+        rot.append(float(np.arccos(np.clip(cos, -1.0, 1.0))))
+        trans.append(float(np.linalg.norm(A[:3, 3] - B[:3, 3])))
+    return rot, trans
 
 
 def log(phase, msg):
@@ -1622,8 +1671,538 @@ def rolling_phase(torch, dev, ref, errs):
         + walls_text(uwalls) + f", warm-up {uwarm:.4f} s, sigma {unc['sigma_px']:.4f} px")
 
 
+# Phase 20: the lab's path from videos to a saved calibration. The rig is
+# the bench rig's construction (synthetic.make_synthetic_rig: a ring of 6
+# cameras, f = 900 px, radial distortion, a tumbling 5 x 7 board of 12.5 mm
+# squares, noise 0.3 px, dropout 0.25, seed 11) at a ring radius and board
+# excursion a 640 x 480 camera resolves (the bench rig's 750 mm ring and
+# +-700 mm excursions leave 2-19 px between corners), and camera 3 where the
+# ring puts it (see video_rig). 600 frames per camera (20 s at 30 fps): at
+# 300 a CPU rehearsal left camera 1 with 29 detections, 5 in a wrong order,
+# and bundle_adjust dropped all its frames (PERF.md §6).
+VIDEO = dict(n_cameras=6, n_frames=600, radius_mm=500.0, excursion_mm=40.0,
+             img_size=(640, 480), noise_px=0.3, dropout=0.25, seed=11)
+# Every camera runs at _detect_video's default batch (video.BATCH_SIZE), one
+# process per camera at once: the main path. On the card the detector takes
+# ~100 ms a frame here, mostly host lattice search on board-less frames
+# (PERF.md §5), so the batch comparison (behind the default's choice) and
+# the equality gate run on the first VIDEO_SWEEP_FRAMES frames of camera
+# VIDEO_SWEEP_CAMERA only.
+VIDEO_BATCHES, VIDEO_SWEEP_CAMERA, VIDEO_SWEEP_FRAMES = (64, 128, 256), 0, 256
+VIDEO_SPLIT_FRAMES = 64
+VIDEO_BOARD = (5, 7)
+# A view is "detectable" when the board faces the camera at most
+# VIDEO_TILT_DEG off the line of sight, the whole board (its sheet, margins
+# and anchor included) lies VIDEO_MARGIN_PX inside the image and no two
+# neighbouring corners are closer than VIDEO_PITCH_PX; the rate is gated
+# there (a CPU rehearsal found recall 1.0 below 45 degrees, 0.70 at 45-60
+# and 0.10 beyond), and so is the corner error of the detections there. On
+# steeper views the detector (the JAX package's, which the port reproduces)
+# sometimes accepts a wrong lattice order; their share of all detections is
+# gated at VIDEO_WRONG_MAX (a detection is wrong when its corners lie more
+# than VIDEO_WRONG_PX RMS from the truth in the true order).
+VIDEO_MARGIN_PX, VIDEO_PITCH_PX, VIDEO_TILT_DEG = 10, 8.0, 45.0
+VIDEO_RATE, VIDEO_RMS_PX = 0.98, 0.6
+VIDEO_WRONG_MAX, VIDEO_WRONG_PX = 0.05, 2.0
+# Calibration gates, written into PERF.md before the first card run from CPU
+# rehearsals of this phase at 6 x 60 and 6 x 600 frames (RMSE 0.0990 / 0.1576
+# px, medians <= 0.0160 / 0.0252 mm, poses relative to camera 0 within 0.093 /
+# 0.0048 rad and 71.7 / 3.47 mm; 60 frames leave 22 for bundle_adjust).
+VIDEO_RMSE_PX, VIDEO_MEDIAN_MM, VIDEO_ROT_RAD, VIDEO_TRANS_MM = 0.3, 0.1, 0.01, 7.0
+CLI_BENCH = ["benchmark", "--n-cameras", "6", "--n-frames", "1000"]
+IO_ATOL = 1e-12  # a saved and loaded calibration: transforms (mm), K (px), dist
+# The JAX package's ``benchmark`` on the same problem (6 cameras, the 995
+# frames seen whole by >= 2 cameras; ``python -m multicam_calibration_tpu.cli
+# benchmark --n-cameras 6 --n-frames 1000`` on the CPU, f64): its final cost.
+# SCIPY_TRF_COST is the bench problem's (922 frames, outliers dropped), not
+# this one's.
+CLI_BENCH_JAX_COST = 13247.102977388131
+
+
+def video_rig(n_cameras, n_frames, radius_mm, excursion_mm, img_size, noise_px, dropout, seed):
+    """``make_synthetic_rig``'s construction, step for step, with the ring
+    radius and the board trajectory's scale given, and the rebase onto
+    camera 0 through ``so3_log``: ``synthetic._rotmat_to_rotvec`` returns
+    no rotation for a half turn, which turns the camera opposite camera 0
+    (camera 3 of 6) to face camera 0's way from behind it."""
+    import torch
+
+    from multicam_calibration_tpu_torch import synthetic as syn
+    from multicam_calibration_tpu_torch.detection.board import generate_chessboard_objpoints
+    from multicam_calibration_tpu_torch.ops.transforms import get_transformation_vector
+
+    def t6(T):
+        return get_transformation_vector(torch.as_tensor(T)).numpy()
+
+    rng = np.random.default_rng(seed)
+    objp = generate_chessboard_objpoints(VIDEO_BOARD, 12.5)
+    ext, intr, sizes = syn.make_camera_ring(n_cameras, radius=radius_mm,
+                                            height=radius_mm * 0.35, img_size=img_size, rng=rng)
+    poses = syn.make_board_trajectory(n_frames, rng=rng, scale=excursion_mm)
+    poses[:, 3:] -= objp.mean(0)
+    T0 = syn._t6_to_T(ext[0])  # camera 0's frame is the world frame
+    ext = np.stack([t6(syn._t6_to_T(e) @ np.linalg.inv(T0)) for e in ext])
+    poses = np.stack([t6(T0 @ syn._t6_to_T(p)) for p in poses])
+    uvs = syn.render_observations(ext, intr, sizes, poses, objp, noise_px=noise_px,
+                                  dropout=dropout, rng=rng)
+    return syn.SyntheticRig(ext, intr, poses, objp, uvs, sizes)
+
+
+def _lattice(uv, rows):
+    """(cols, rows, 2) grid of a board's corners (corner k = c * rows + r)."""
+    return np.asarray(uv).reshape(-1, rows, 2)
+
+
+def render_camera(path, rig_arrays, cam, board_shape, seed):
+    """Render one camera's views of the rig to an MJPEG .avi with OpenCV's
+    built-in writer (3-channel frames: its grayscale mode writes corrupt
+    frames in some OpenCV builds) and return (truth (F, N, 2), shown (F,),
+    detectable (F,), dropped (F,), writer backend). A view shows the board
+    where the board is in front of the camera, faces it (its image is not
+    mirrored) and the rig did not drop it; every other view is rendered with
+    the board outside the picture. Runs in a worker process."""
+    import cv2
+
+    from multicam_calibration_tpu_torch.detection import synthetic_images as si
+    from multicam_calibration_tpu_torch.detection.synthetic_images import (
+        distort_pixels, render_board_image, render_board_view)
+    from multicam_calibration_tpu_torch.synthetic import _project_np, _t6_to_T
+
+    cv2.setNumThreads(1)
+    ext, K, dist, poses, objp, uvs, (w, h) = rig_arrays
+    rows, _ = board_shape
+    sheet_img, can = render_board_image(board_shape, 40)
+    sheet = np.array([[0.0, 0.0, 1.0], [sheet_img.shape[1], 0, 1], [sheet_img.shape[1],
+                      sheet_img.shape[0], 1], [0, sheet_img.shape[0], 1]])
+    Tc = _t6_to_T(ext)
+    off = np.array([[1.0, 0, 1e5], [0, 1.0, 1e5], [0, 0, 1.0]])  # board far off-image
+    # render_board_view computes its lens's undistort map for every view:
+    # this camera's is computed once and served to each of its views.
+    lens_map, undistort_pixel_map = si.undistort_pixel_map((h, w), K, dist), si.undistort_pixel_map
+    si.undistort_pixel_map = lambda *args, **kwargs: lens_map
+    try:
+        writer = cv2.VideoWriter(path, cv2.CAP_OPENCV_MJPEG, cv2.VideoWriter_fourcc(*"MJPG"), 30,
+                                 (w, h), True)
+        check(writer.isOpened(), f"cv2 cannot write {path} with its built-in MJPEG backend")
+        F, N = len(poses), len(objp)
+        truth = np.full((F, N, 2), np.nan)
+        shown, detectable, dropped = (np.zeros(F, bool) for _ in range(3))
+        for f in range(F):
+            Tb = _t6_to_T(poses[f])
+            world = objp @ Tb[:3, :3].T + Tb[:3, 3]
+            in_cam = world @ Tc[:3, :3].T + Tc[:3, 3]
+            z = in_cam[:, 2]
+            normal = Tc[:3, :3] @ Tb[:3, :3][:, 2]
+            ray = in_cam.mean(0)
+            tilt = np.degrees(np.arccos(min(1.0, abs(normal @ ray) / np.linalg.norm(ray))))
+            ideal = _project_np(world, ext, K, np.zeros(5))
+            real = _project_np(world, ext, K, dist)
+            inside = lambda p, m: bool((p >= m).all() and (p[:, 0] < w - m).all()  # noqa: E731
+                                       and (p[:, 1] < h - m).all())
+            in_front = bool((z > 0.05).all())
+            dropped[f] = in_front and inside(real, 0) and np.isnan(uvs[f]).any()
+            g = _lattice(ideal, rows)
+            e_c, e_r = np.diff(g, axis=0).mean((0, 1)), np.diff(g, axis=1).mean((0, 1))
+            shown[f] = in_front and not dropped[f] and e_c[0] * e_r[1] - e_c[1] * e_r[0] > 0
+            H = off
+            if shown[f]:
+                A = []
+                for (x, y), (u, v) in zip(can, ideal):
+                    A += [[x, y, 1, 0, 0, 0, -u * x, -u * y, -u],
+                          [0, 0, 0, x, y, 1, -v * x, -v * y, -v]]
+                H = np.linalg.svd(np.asarray(A))[2][-1].reshape(3, 3)
+            view, gt = render_board_view(H, (h, w), board_shape=board_shape, camera_matrix=K,
+                                         dist_coefs=dist, seed=seed + f)
+            if shown[f]:
+                truth[f] = gt
+                gl = _lattice(gt, rows)
+                pitch = min(np.linalg.norm(np.diff(gl, axis=a), axis=-1).min() for a in (0, 1))
+                corners = sheet @ H.T
+                corners = distort_pixels(corners[:, :2] / corners[:, 2:], K, dist)
+                detectable[f] = (inside(corners, VIDEO_MARGIN_PX) and pitch >= VIDEO_PITCH_PX
+                                 and tilt <= VIDEO_TILT_DEG)
+            writer.write(cv2.cvtColor(view.astype(np.uint8), cv2.COLOR_GRAY2BGR))
+        name = writer.getBackendName()
+        writer.release()
+    finally:
+        si.undistort_pixel_map = undistort_pixel_map
+    return truth, shown, detectable, dropped, name
+
+
+def map_in_processes(fn, *iterables):
+    """``list(map(fn, *iterables))`` in spawned worker processes, one per
+    item up to the host's cores, each with one BLAS / OpenMP thread (six
+    workers each spinning a thread per core made the render 5-7x slower);
+    the workers read that from the environment at start. Every worker has
+    ended when this returns."""
+    import multiprocessing
+
+    items = list(zip(*iterables))
+    threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                              "MKL_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(threads, "1"))
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                min(len(items), os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            return list(ex.map(fn, *zip(*items)))
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def render_rig_videos(directory, rig):
+    """One worker process per camera renders and writes its video. Returns
+    (paths, truth (C, F, N, 2), shown, detectable, dropped, backends)."""
+    objp = rig.calib_objpoints
+    paths = [os.path.join(directory, f"cam{c}.avi") for c in range(rig.n_cameras)]
+    args = [(paths[c], (rig.all_extrinsics[c], *rig.all_intrinsics[c], rig.calib_poses, objp,
+                        rig.all_calib_uvs[c], rig.img_sizes[c]), c, VIDEO_BOARD, 1000 * c)
+            for c in range(rig.n_cameras)]
+    out = map_in_processes(render_camera, *zip(*args))
+    *arrays, backends = zip(*out)
+    return (paths, *(np.stack(a) for a in arrays), list(backends))
+
+
+def detect_camera(path):
+    """One camera's detection on the main path, in a worker process:
+    ``_detect_video`` on the card at its default batch, with the corner
+    kernel's launches counted from 0 just before and read just after.
+    Returns (its detections, those launches, its seconds)."""
+    import torch
+
+    from multicam_calibration_tpu_torch.detection import video
+    from multicam_calibration_tpu_torch.device import cuda_device
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+
+    dev = cuda_device()
+    cc.corner_response_peaks.launches = 0
+    out, wall = timed(torch, lambda: video._detect_video(
+        path, video.detect_chessboard, {"board_shape": VIDEO_BOARD}, device=dev))
+    return out, cc.corner_response_peaks.launches, wall
+
+
+def decoded_frames(path):
+    """Every frame of a video through the port's cv2 reader, in order."""
+    from multicam_calibration_tpu_torch.detection.video import VideoReader
+
+    reader = VideoReader(path)
+    try:
+        return [reader[i] for i in range(len(reader))]
+    finally:
+        reader.close()
+
+
+def video_phase(torch, dev, errs):
+    """Phase 20: rendered videos -> ``_detect_video`` (corner kernel) ->
+    ``_assemble_aligned`` -> ``cli._calibrate_from_detections`` (both BA
+    kernels) -> ``save_calibration`` / ``load_calibration``, then the CLI."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import cv2
+
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch import cli
+    from multicam_calibration_tpu_torch.detection import native_video, video
+    from multicam_calibration_tpu_torch.models import bundle_adjustment, initialize, lm_core
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+    from multicam_calibration_tpu_torch.utils.config import PipelineConfig
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    rig = video_rig(**VIDEO)
+    C, F = rig.n_cameras, rig.n_frames
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        (paths, truth, shown, detectable, dropped, backends), t_render = timed(
+            torch, lambda: render_rig_videos(tmp, rig))
+        check(set(backends) == {"CV_MJPEG"}, f"video writer backends {backends}")
+        reader = video.open_video(paths[0])
+        serving = f"{reader.backend} ({getattr(reader, 'api', 'libav')}), {len(reader)} frames"
+        check(len(reader) == F, f"a video holds {len(reader)} frames, not {F}")
+        reader.close()
+        log("20 videos", f"{C} cameras x {F} frames of {VIDEO['img_size'][0]}x"
+            f"{VIDEO['img_size'][1]}, rendered and written in {t_render:.2f} s by {C} "
+            f"processes with cv2 {cv2.__version__} {backends[0]} (MJPG); board shown in "
+            f"{int(shown.sum())} views, {int(detectable.sum())} detectable, {int(dropped.sum())} "
+            f"dropped by the rig (board-less); reader: {serving}; native runtime: "
+            + ("available" if native_video.available() else "unavailable ("
+               + (native_video.build_error() or "").strip().splitlines()[-1][:160] + ")"))
+
+        # The main path's detection: every camera at the default batch, one
+        # process per camera at once, each counting its corner-kernel
+        # launches from 0 (the BA kernels' counts start at 0 here, for the
+        # calibration).
+        options = {"board_shape": VIDEO_BOARD}
+        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        B0, c0, F0 = video.BATCH_SIZE, VIDEO_SWEEP_CAMERA, min(VIDEO_SWEEP_FRAMES, F)
+        found, t_detect = timed(torch, lambda: map_in_processes(detect_camera, paths))
+        main, launches, walls = (list(x) for x in zip(*found))
+        for c, n in enumerate(launches):
+            check(n >= -(-F // B0), f"camera {c}: {n} corner-kernel launches")
+        corner_main = sum(launches)
+        log(f"20 detect batch {B0}", f"{C} processes at once, {C * F / t_detect:.1f} frames/s "
+            f"with decode over the pool's {t_detect:.1f} s (process start included); per "
+            "camera " + ", ".join(f"{F / w:.1f}" for w in walls) + " frames/s in its process "
+            f"({C * F / sum(walls):.1f} over their summed time); corner-kernel launches per "
+            "camera " + ", ".join(map(str, launches)) + "; detections per camera "
+            + ", ".join(str(len(o[1])) for o in main))
+        # The batch comparison on camera c0's first F0 frames, in this
+        # process alone.
+        sweep = {B: [] for B in VIDEO_BATCHES}
+        for B in VIDEO_BATCHES:
+            out, wall = timed(torch, lambda: video._detect_video(
+                paths[c0], video.detect_chessboard, options, use_frames=np.arange(F0),
+                batch_size=B, device=dev))
+            sweep[B].append((F0 / wall, out))
+        rates = {B: statistics.median(r for r, _ in runs) for B, runs in sweep.items()}
+        best = max(rates, key=rates.get)
+        first = main[c0][1] < F0
+        same_batches = all(np.array_equal(o[1], main[c0][1][first])
+                           and np.allclose(o[0], main[c0][0][first], rtol=0, atol=1e-6)
+                           for runs in sweep.values() for _, o in runs)
+        log("20 detect batches", f"camera {c0}, frames 0-{F0 - 1}, frames/s with decode: "
+            + "; ".join(
+                f"batch {B} " + ", ".join(f"{r:.1f}" for r, _ in runs)
+                for B, runs in sweep.items()) + f"; fastest {best}")
+        check(same_batches, f"camera {c0}: batches {VIDEO_BATCHES} detect different frames or "
+              "corners more than 1e-6 px apart")
+
+        # Gates: _detect_video at the default batch in this process equal
+        # to detect_chessboard_batch on the same decoded frames (the worker
+        # processes run one BLAS thread, this one several), no board-less
+        # detection, rate on detectable views, corner error.
+        uvs, fixs, _, qc = sweep[B0][0][1]
+        frames = decoded_frames(paths[c0])
+        ref = {}
+        for lo in range(0, F0, B0):
+            chunk = frames[lo:min(lo + B0, F0)]
+            chunk += [chunk[-1]] * (B0 - len(chunk))
+            for j, (u, q) in mct.detect_chessboard_batch(
+                    chunk, board_shape=VIDEO_BOARD, device=dev).items():
+                if lo + j < F0:
+                    ref[lo + j] = (u, q)
+        check(sorted(ref) == fixs.tolist(), f"camera {c0}: frames differ from "
+              "detect_chessboard_batch's")
+        check(all(np.array_equal(ref[i][0], u) and np.array_equal(ref[i][1], q)
+                  for i, u, q in zip(fixs.tolist(), uvs, qc)),
+              f"camera {c0}: detections differ from detect_chessboard_batch's")
+        # Where the time goes: one call on board-less frames, one on frames
+        # showing the board, from camera c0's video.
+        split = {}
+        for label, pick in (("board-less", ~shown[c0]), ("board shown", shown[c0])):
+            ix = np.nonzero(pick)[0][:VIDEO_SPLIT_FRAMES]
+            _, wall = timed(torch, lambda: mct.detect_chessboard_batch(
+                [frames[i] for i in ix], board_shape=VIDEO_BOARD, device=dev))
+            split[label] = (len(ix), 1e3 * wall / max(len(ix), 1))
+        del frames
+        err, hits = np.full((C, F), np.nan), np.zeros((C, F), bool)
+        for c in range(C):
+            uvs, fixs, size, qc = main[c]
+            check(tuple(size) == tuple(VIDEO["img_size"]), f"img_size {size}")
+            hits[c, fixs] = True
+            err[c, fixs] = np.sqrt(((uvs - truth[c, fixs]) ** 2).sum(-1).mean(-1))
+        false = int((hits & ~shown).sum())
+        check(false == 0, f"{false} detections on board-less frames")
+        rate = float(hits[detectable].mean())
+        check(rate >= VIDEO_RATE, f"detection rate {rate:.4f} on detectable views")
+        on_det = err[hits & detectable]
+        rms = float(np.sqrt(np.mean(on_det ** 2)))
+        check(rms < VIDEO_RMS_PX, f"corner error RMS {rms:.4f} px on detectable views")
+        wrong = hits & (err > VIDEO_WRONG_PX)
+        share = float(wrong.sum() / hits.sum())
+        check(share <= VIDEO_WRONG_MAX, f"{int(wrong.sum())} of {int(hits.sum())} detections "
+              "in a wrong lattice order")
+        rms_ok = float(np.sqrt(np.mean(err[hits & ~wrong] ** 2)))
+        log("20 detection gates", f"batch {B0} (the default; camera {c0}'s first {F0} "
+            "frames: the same frames at every batch, corners within 1e-6 px, and bit-equal to "
+            "detect_chessboard_batch on the decoded frames); one call "
+            + "; ".join(f"on {n} {k} frames {ms:.1f} ms a frame" for k, (n, ms) in split.items())
+            + "; "
+            f"{int(hits.sum())} detections, 0 on the {int((~shown).sum())} board-less frames; "
+            f"rate {rate:.4f} on the {int(detectable.sum())} detectable views (board shown: "
+            f"{float(hits[shown].mean()):.4f} of {int(shown.sum())}); corner "
+            f"error RMS {rms:.4f} px on detectable views, {rms_ok:.4f} px on all but the "
+            f"{int(wrong.sum())} in a wrong order ({share:.4f}; per camera "
+            f"{wrong.sum(1).tolist()}, worst {float(np.nanmax(err)):.1f} px)")
+
+        # Calibration through the CLI's helper, then the profiler's count.
+        aligned = np.stack([np.arange(F)] * C, 1)
+        all_uvs = video._assemble_aligned([m[0] for m in main], [m[1] for m in main], aligned)
+        img_sizes = [tuple(m[2]) for m in main]
+        cfg = PipelineConfig()
+        names = [f"cam{c}" for c in range(C)]
+        out_json = os.path.join(tmp, "calib.json")
+        solves = []
+        lm_solve = bundle_adjustment.lm_solve
+
+        def recording_lm_solve(*args, **kwargs):
+            out = lm_solve(*args, **kwargs)
+            solves.append((args[:5], args[5], out[2]))
+            return out
+
+        def calibrate_once():
+            solves.clear()
+            with contextlib.redirect_stdout(io.StringIO()):
+                return cli._calibrate_from_detections(all_uvs, img_sizes, cfg, names, out_json,
+                                                      "json", False, dev)
+
+        def expected(info):
+            objp = torch.as_tensor(rig.calib_objpoints, device=dev)
+            eb = ec = 0
+            for k, (_, o, sinfo) in enumerate(solves):
+                if lm_core._cuda_block_build(o, torch.float64, objp):
+                    eb += sinfo["n_iters"]
+                if lm_core._cuda_cost_eval(o, torch.float64, objp):
+                    ec += sinfo["nfev"] + int(k == 0 and "n_poses_repaired" in info)
+            return eb, ec
+
+        real_calibrate = initialize.calibrate
+        start = {}
+
+        def recording_calibrate(*args, **kwargs):
+            start["out"] = real_calibrate(*args, **kwargs)
+            return start["out"]
+
+        bundle_adjustment.lm_solve = recording_lm_solve
+        initialize.calibrate = recording_calibrate
+        try:
+            metrics.stage_times.clear()
+            (ext, intr, poses, use_frames, med, info), t_cal = timed(torch, calibrate_once)
+            stages = stage_text(metrics.stage_times, 1)
+            counts = (corner_main, ba_cuda.ba_chunk_blocks.launches,
+                      ba_cuda.ba_chunk_cost.launches)
+            check(all(n > 0 for n in counts), f"main path kernel launches {counts} "
+                  "(corner, blocks, cost): a kernel of the path did not run")
+            check(counts[1:] == expected(info), f"BA wrapper calls {counts[1:]}, the solves "
+                  f"account for {expected(info)}")
+            # Both BA kernels against their twins at this path's first
+            # kernel-route solve's start (outliers deep in soft-L1's robust
+            # branch among its observations).
+            objp = torch.as_tensor(rig.calib_objpoints, device=dev)
+            held = hold_kernels_at(torch, *next(
+                (start, o) for start, o, _ in solves
+                if lm_core._cuda_block_build(o, torch.float64, objp)), errs)
+            # Under the profiler, the path after calibrate from the same start.
+            initialize.calibrate = lambda *args, **kwargs: start["out"]
+            (out_p, t_prof), prof = profiled(torch, lambda: timed(torch, calibrate_once),
+                                             "20 calibration")
+            device_events = [e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and not is_annotation(e)]
+            busy = sum(e.time_range.elapsed_us() for e in device_events) / 1e6 / t_prof
+            kernels = [re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
+                       for e in device_events]
+            nk = (kernels.count("ba_blocks_kernel"), kernels.count("ba_cost_kernel"))
+            check(nk == expected(out_p[5]), f"profiler: BA kernel launches {nk}, the solves "
+                  f"account for {expected(out_p[5])}")
+        finally:
+            bundle_adjustment.lm_solve = lm_solve
+            initialize.calibrate = real_calibrate
+        ext = np.asarray(ext)
+        pred = mct.predict_calib_uvs(ext, intr, rig.calib_objpoints, poses,
+                                     device=dev).cpu().numpy()
+        err = np.linalg.norm(all_uvs[:, use_frames] - pred, axis=-1)
+        rmse = float(np.sqrt(np.nanmean(err ** 2)))
+        rot, trans = relative_pose_errors(ext, rig.all_extrinsics)
+        log("20 calibration", f"bundle_adjust's {len(use_frames)} frames; "
+            f"calibrate -> bundle_adjust -> compute_residual_metric -> save_calibration in "
+            f"{t_cal:.3f} s ({stages}); n_iters {int(info['n_iters'])} nfev "
+            f"{int(info['nfev'])}; kernel "
+            f"launches on the path: corner {counts[0]}, ba_blocks_kernel {counts[1]}, "
+            f"ba_cost_kernel {counts[2]} (profiler, from calibrate's result: {nk[0]}, {nk[1]}; "
+            f"device busy {busy:.4f} of that call's {t_prof:.3f} s, {len(device_events)} "
+            f"device events); "
+            f"kernels vs twins at the first kernel-route solve's start, {held}; "
+            f"reprojection RMSE {rmse:.4f} px; residual medians "
+            + ", ".join(f"{m:.4f}" for m in med) + " mm; camera poses relative to camera 0 "
+            "vs truth: rotation " + ", ".join(f"{r:.2e}" for r in rot) + " rad, translation "
+            + ", ".join(f"{t:.3f}" for t in trans) + " mm")
+        check(rmse < VIDEO_RMSE_PX, f"reprojection RMSE {rmse:.4f} px")
+        check(bool(np.all(med < VIDEO_MEDIAN_MM)), f"residual medians {med}")
+        check(max(rot) < VIDEO_ROT_RAD and max(trans) < VIDEO_TRANS_MM,
+              "camera poses relative to camera 0 off the truth")
+
+        # I/O round trips, compared as transforms (an axis-angle vector and
+        # its canonical form, |r| <= pi, are the same rotation), K and dist.
+        def io_diff(loaded):
+            l_ext, l_intr = loaded[:2]
+            return max(float(np.abs(transforms(l_ext) - transforms(ext)).max()),
+                       max(float(np.abs(np.asarray(a[0]) - b[0]).max()) for a, b in zip(l_intr, intr)),
+                       max(float(np.abs(np.ravel(a[1]) - np.ravel(b[1])).max())
+                           for a, b in zip(l_intr, intr)))
+
+        loaded = mct.load_calibration(out_json)
+        check(loaded[2] == names, f"names {loaded[2]}")
+        io_err = {"json": io_diff(loaded)}
+        mct.save_calibration(ext, intr, names, os.path.join(tmp, "jarvis"), "jarvis")
+        io_err["jarvis"] = io_diff(mct.load_calibration(os.path.join(tmp, "jarvis"), "jarvis"))
+        try:
+            import h5py  # noqa: F401
+            have_h5py = True
+        except ImportError:
+            have_h5py = False
+        gimbal = os.path.join(tmp, "calib")
+        if have_h5py:
+            mct.save_calibration(ext, intr, names, gimbal, "gimbal")
+            io_err["gimbal"] = io_diff(mct.load_calibration(gimbal + ".h5", "gimbal"))
+            gimbal_text = f"h5py present: GIMBAL {io_err['gimbal']:.1e}"
+        else:
+            try:
+                mct.save_calibration(ext, intr, names, gimbal, "gimbal")
+                raise AssertionError("GIMBAL saved without h5py")
+            except ImportError as e:
+                check("h5py" in str(e), f"GIMBAL's ImportError does not name h5py: {e}")
+                gimbal_text = f"GIMBAL raises ImportError: {e}"
+        log("20 I/O", f"JSON round trip max |diff| {io_err['json']:.1e} (transform, K, dist); "
+            f"JARVIS {io_err['jarvis']:.1e}; {gimbal_text}")
+        check(all(v <= IO_ATOL for v in io_err.values()), f"round trips off by {io_err}")
+
+        # The CLI: benchmark, export, calibrate.
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(CLI_BENCH)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rec["platform"] == "gpu"
+              and rec["final_cost"] <= CLI_BENCH_JAX_COST * (1 + BA_COST_RTOL),
+              f"mcc benchmark: {rec}; the JAX package's final cost {CLI_BENCH_JAX_COST}")
+        back = os.path.join(tmp, "back.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main(["export", out_json, os.path.join(tmp, "cli_jarvis"), "--from-format",
+                            "json", "--to-format", "jarvis"]) == 0, "export json -> jarvis")
+            check(cli.main(["export", os.path.join(tmp, "cli_jarvis"), back, "--from-format",
+                            "jarvis", "--to-format", "json"]) == 0, "export jarvis -> json")
+        io_err["export"] = io_diff(mct.load_calibration(back))
+        check(io_err["export"] <= IO_ATOL, f"export round trip off by {io_err['export']:.1e}")
+        if have_h5py:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["calibrate", *paths, "--output", os.path.join(tmp, "cli.json")])
+            check(rc == 0, "mcc calibrate")
+            calibrate_text = "calibrate ran (h5py present)"
+        else:
+            try:
+                cli.main(["calibrate", *paths, "--output", os.path.join(tmp, "cli.json")])
+                raise AssertionError("mcc calibrate ran without h5py")
+            except ImportError as e:
+                check("h5py" in str(e), f"calibrate's ImportError does not name h5py: {e}")
+                calibrate_text = f"calibrate raises ImportError: {e}"
+        log("20 CLI", f"benchmark {json.dumps(rec)}; export json -> jarvis -> json max |diff| "
+            f"{io_err['export']:.1e}; "
+            + calibrate_text)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("20 phase", f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def host_packages():
-    """Which host packages the modules not ported yet would need are here:
+    """Which host packages the video and I/O modules can use here:
     h5py, yaml, pandas and cv2 by import, libavformat by its library."""
     import ctypes
     import ctypes.util
@@ -1835,6 +2414,7 @@ def main():
     triangulation_phase(torch, dev, bench_rig, analysis, port_ba)
     flatibration_phase(torch, dev, analysis)
     rolling_phase(torch, dev, analysis, errs)
+    video_phase(torch, dev, errs)
     log("host packages", host_packages())
 
     print(json.dumps({"kernels": [

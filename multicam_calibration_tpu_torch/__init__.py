@@ -12,8 +12,12 @@ the batch path at full resolution and in the low band, streamed batches,
 the single-frame ``scale_factor`` path, the native lattice growth), and
 what a lab runs after bundle adjustment: triangulation
 (``ops.triangulation``), flatibration, calibration uncertainty and rolling
-re-calibration (``models.streaming.RollingCalibrator``); see ROADMAP.md for
-the rest.
+re-calibration (``models.streaming.RollingCalibrator``), and the lab's
+path from videos to a saved calibration: video decode and the detection
+cache (``detection.video``, ``detection.native_video``), calibration I/O and
+config (``utils.io``, ``utils.config``), the residual metric and QC plots
+(``viz``), the FLOP model (``utils.flops``) and the CLI (``cli``, ``python
+-m multicam_calibration_tpu_torch``); see ROADMAP.md for the rest.
 
 Entry points take numpy input and run on the CUDA device unless the caller
 passes ``device="cpu"`` (or CPU tensors).
@@ -26,9 +30,14 @@ from .detection import (
     detect_chessboard,
     detect_chessboard_batch,
     detect_chessboard_batches,
+    extend_grid,
     find_corner_candidates,
     generate_chessboard_objpoints,
+    process_video,
     refine_corners_subpix,
+    reorder_chessboard_corners,
+    run_calibration_detection,
+    summarize_detections,
 )
 from .models.initialize import (
     calibrate,
@@ -61,6 +70,17 @@ from .models.flatibration import (
 from .models.streaming import RollingCalibrator
 from .models.uncertainty import calibration_uncertainty
 from .synthetic import make_synthetic_rig
+from .utils.io import load_calibration, save_calibration
+from .viz import (
+    compute_residual_metric,
+    overlay_detections,
+    pad_axis_limits,
+    plot_chessboard_qc_data,
+    plot_residuals,
+    plot_shared_detections,
+    set_axis_limits,
+    visualize_flatibration,
+)
 
 __all__ = list(_ops_all) + [
     "calibrate",
@@ -96,4 +116,22 @@ __all__ = list(_ops_all) + [
     "flip_z_axis",
     "center_arena",
     "get_floor_points",
+    "extend_grid",
+    "reorder_chessboard_corners",
+    "process_video",
+    "run_calibration_detection",
+    "summarize_detections",
+    "load_calibration",
+    "save_calibration",
+    "compute_residual_metric",
+    "overlay_detections",
+    "pad_axis_limits",
+    "plot_chessboard_qc_data",
+    "plot_residuals",
+    "plot_shared_detections",
+    "set_axis_limits",
+    "visualize_flatibration",
 ]
+
+# Git-derived (a clone or a worktree), else the installed metadata.
+from ._version import __version__  # noqa: E402

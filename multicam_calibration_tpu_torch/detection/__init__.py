@@ -10,6 +10,7 @@ from .detector import (
     refine_corners_subpix,
     reorder_chessboard_corners,
 )
+from .video import process_video, run_calibration_detection, summarize_detections
 
 __all__ = [
     "generate_chessboard_objpoints",
@@ -21,4 +22,7 @@ __all__ = [
     "find_corner_candidates",
     "refine_corners_subpix",
     "reorder_chessboard_corners",
+    "process_video",
+    "run_calibration_detection",
+    "summarize_detections",
 ]

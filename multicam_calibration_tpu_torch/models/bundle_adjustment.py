@@ -27,7 +27,8 @@ from ..ops.projection import project_points
 from ..ops.transforms import euclidean_to_homogenous, get_transformation_matrix
 from ..utils.metrics import metrics
 from .initialize import _host as _np
-from .lm_core import HIST_FIELDS, LMOptions, compute_cost, compute_residuals, lm_solve
+from .lm_core import (HIST_FIELDS, LMOptions, accelerator_recipe, compute_cost, compute_residuals,
+                      lm_solve)
 
 __all__ = [
     "embed_calib_objpoints",
@@ -444,12 +445,7 @@ def bundle_adjust(
     if dtype is None:
         dtype = torch.float64
         default_jac_dtype = "float32"
-        if dev.type != "cpu":
-            default_f32 = dict(
-                block_dtype="float32", cost_dtype="float32",
-                solve_dtype="float32", grad_dtype="float32",
-                gtol_rel=1e-6, lambda_escalation=3.0,
-            )
+        default_f32 = accelerator_recipe(dev)
     elif isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     as_t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731

@@ -714,6 +714,13 @@ def _repair_bad_intrinsics(
     return changed
 
 
+def _batched_route(uvs_arr, device):
+    """Whether ``calibrate`` takes the camera-batched entry points: uniform
+    (C, F, N, 2) detections on a CUDA device (the JAX package's rule is
+    "off the CPU backend")."""
+    return uvs_arr is not None and uvs_arr.ndim == 4 and device.type == "cuda"
+
+
 def calibrate(
     all_calib_uvs,
     img_sizes,
@@ -729,32 +736,53 @@ def calibrate(
 
     Stage timers (``utils.metrics``): ``calibrate.intrinsics``,
     ``calibrate.poses``, ``calibrate.extrinsics``, ``calibrate.consensus``,
-    ``calibrate.repair``. Each camera's intrinsics and planar poses are
-    solved on their own (the JAX package's backend switch to its vmapped
-    ``_batch`` entry points changes no result, so the port keeps one path).
+    ``calibrate.repair``. As in the JAX package, uniform (C, F, N, 2)
+    detections take the camera-batched entry points
+    (``get_intrinsics_batch``, ``estimate_pose_batch``) on an accelerator
+    (here a CUDA device, :func:`_batched_route`), where per-camera dispatch
+    dominates; on the CPU each camera is solved on its own.
     """
     from ..utils.metrics import metrics
 
     dev = _pick(device, all_calib_uvs)
     n_cameras = len(all_calib_uvs)
+    try:
+        uvs_arr = np.asarray(all_calib_uvs, dtype=float)
+    except (ValueError, TypeError):  # ragged per-camera input, or tensors
+        uvs_arr = None
+    batched = _batched_route(uvs_arr, dev)
     if verbose:
         print("Estimating camera intrinsics")
     with metrics.timer("calibrate.intrinsics", n_cameras=n_cameras):
-        all_intrinsics = [
-            get_intrinsics(
-                all_calib_uvs[c], calib_objpoints, img_sizes[c],
+        if batched:
+            all_intrinsics = get_intrinsics_batch(
+                uvs_arr, calib_objpoints, img_sizes,
                 n_samples=n_samples_for_intrinsics, device=dev,
             )
-            for c in range(n_cameras)
-        ]
+        else:
+            all_intrinsics = [
+                get_intrinsics(
+                    all_calib_uvs[c], calib_objpoints, img_sizes[c],
+                    n_samples=n_samples_for_intrinsics, device=dev,
+                )
+                for c in range(n_cameras)
+            ]
     if verbose:
         print("Initializing calibration object poses")
     with metrics.timer("calibrate.poses"):
-        all_calib_poses = np.stack([
-            _host(estimate_pose(all_calib_uvs[c], calib_objpoints,
-                                *all_intrinsics[c], device=dev))
-            for c in range(n_cameras)
-        ])
+        if batched:
+            # np.array (a copy): _repair_bad_intrinsics writes rows in place.
+            all_calib_poses = np.array(_host(estimate_pose_batch(
+                uvs_arr, calib_objpoints,
+                [k for k, _ in all_intrinsics], [d for _, d in all_intrinsics],
+                device=dev,
+            )))
+        else:
+            all_calib_poses = np.stack([
+                _host(estimate_pose(all_calib_uvs[c], calib_objpoints,
+                                    *all_intrinsics[c], device=dev))
+                for c in range(n_cameras)
+            ])
     if verbose:
         print("Estimating camera extrinsics")
     with metrics.timer("calibrate.extrinsics"):

@@ -46,6 +46,7 @@ from ..ops.rotation import so3_exp, so3_left_jacobian
 
 __all__ = [
     "LMOptions",
+    "accelerator_recipe",
     "HIST_FIELDS",
     "NormalBlocks",
     "project_board_points",
@@ -131,6 +132,20 @@ class LMOptions:
 HIST_FIELDS = ("cost", "grad_norm", "step_norm", "lambda", "tries", "rel_drop")
 
 _ROADMAP = "not ported yet (ROADMAP.md, Queue 1: {})"
+
+
+def accelerator_recipe(device, gtol_rel=1e-6):
+    """The JAX package's numerics for f64 data off the CPU, as LMOptions
+    fields: Jacobians, J^T J blocks, per-observation products, per-try cost
+    and the Schur solve in f32, ``lambda_escalation=3.0`` and the relative
+    gradient stop ``gtol_rel`` (its bundle_adjust's 1e-6; 0.0 for a solve of
+    fixed iterations). On CUDA the recipe routes the block build and the
+    per-try cost through the BA kernels. Empty on the CPU."""
+    if torch.device(device).type == "cpu":
+        return {}
+    return dict(jac_dtype="float32", block_dtype="float32", cost_dtype="float32",
+                solve_dtype="float32", grad_dtype="float32", gtol_rel=gtol_rel,
+                lambda_escalation=3.0)
 
 
 def _torch_dtype(name):

@@ -41,22 +41,17 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from .bundle_adjustment import _arrays_to_params, _params_to_arrays
 from .initialize import _batched_estimate_pose, consensus_calib_poses
-from .lm_core import LMOptions, lm_solve
+from .lm_core import LMOptions, accelerator_recipe, lm_solve
 
 __all__ = ["RollingCalibrator"]
 
 
 def _window_options(dtype, device, iters_per_update):
     """LMOptions of the windowed solve: ``iters_per_update`` iterations, no
-    ftol stop. The JAX package's accelerator recipe (its streaming.py:94-109)
-    applies to an f64 window off the CPU: Jacobians, blocks, per-observation
-    products, cost and Schur solve in f32, ``lambda_escalation=3.0``; on
-    CUDA that routes the block build and the per-try cost through the BA
-    kernels."""
-    recipe = {}
-    if dtype == torch.float64 and device.type != "cpu":
-        recipe = dict(jac_dtype="float32", block_dtype="float32", cost_dtype="float32",
-                      solve_dtype="float32", grad_dtype="float32", lambda_escalation=3.0)
+    ftol or gradient stop. The JAX package's accelerator recipe (its
+    streaming.py:94-109; ``lm_core.accelerator_recipe``) applies to an f64
+    window off the CPU."""
+    recipe = accelerator_recipe(device, gtol_rel=0.0) if dtype == torch.float64 else {}
     return LMOptions(max_iters=int(iters_per_update), ftol=0.0, **recipe)
 
 

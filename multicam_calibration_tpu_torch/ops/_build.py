@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) with nvcc at first use (:func:`load_library`); each
 ``csrc/<name>.cc`` is host code, compiled with the host C++ compiler
-(:func:`load_host_library`). Both go into
+(:func:`load_host_library`, with the link libraries it names). Both go
+into
 ``multicam_calibration_tpu_torch/_build/`` (listed in ``.gitignore``), under
 a name keyed by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused, with the build's log beside the
@@ -64,11 +65,13 @@ def _host_cxx() -> str:
     return found
 
 
-def _build(src: Path, compiler, flags, with_command: bool) -> BuiltLibrary:
+def _build(src: Path, compiler, flags, with_command: bool, libs=()) -> BuiltLibrary:
     """Compile ``src`` with ``compiler()`` into BUILD_DIR unless an identical
-    build exists, and load it. ``with_command`` puts the command line at the
-    top of the log."""
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    build exists, and load it. ``libs`` (``-l...``) follow the source on the
+    command line. ``with_command`` puts the command line at the top of the
+    log."""
+    key = hashlib.sha256(
+        src.read_bytes() + " ".join(flags + tuple(libs)).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}-{key}.so"
     log_path = out.with_suffix(".log")
     build_s = 0.0
@@ -77,7 +80,7 @@ def _build(src: Path, compiler, flags, with_command: bool) -> BuiltLibrary:
     else:
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
+        cmd = [compiler(), *flags, "-o", str(tmp), str(src), *libs]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         build_s = time.perf_counter() - t0
@@ -98,8 +101,9 @@ def load_library(name: str) -> BuiltLibrary:
 
 
 @functools.cache
-def load_host_library(name: str) -> BuiltLibrary:
-    """Compile ``csrc/<name>.cc`` with the host C++ compiler if needed and
-    load it. Raises on failure. The log holds the command line and the
-    compiler's output."""
-    return _build(CSRC_DIR / f"{name}.cc", _host_cxx, HOST_FLAGS, with_command=True)
+def load_host_library(name: str, libs: tuple = ()) -> BuiltLibrary:
+    """Compile ``csrc/<name>.cc`` with the host C++ compiler if needed,
+    linked against ``libs`` (e.g. ``("-lavformat",)``), and load it. Raises
+    on failure. The log holds the command line and the compiler's output."""
+    return _build(CSRC_DIR / f"{name}.cc", _host_cxx, HOST_FLAGS, with_command=True,
+                  libs=tuple(libs))

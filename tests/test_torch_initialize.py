@@ -277,6 +277,40 @@ def test_calibrate_matches_jax(rig, jax_cal):
     _assert_calibration_close(got, jax_cal)
 
 
+def test_calibrate_batched_route_matches_jax(rig, monkeypatch):
+    """The accelerator route (``get_intrinsics_batch`` + ``estimate_pose_batch``),
+    which both packages take off the CPU, forced in both on the CPU: the
+    port's calibrate equals JAX's at the end-to-end tolerances above, and
+    its own per-camera route."""
+
+    class _OffCpu:  # the JAX module's ``jax`` with a non-CPU default backend
+        def __getattr__(self, name):
+            import jax
+
+            return (lambda: "gpu") if name == "default_backend" else getattr(jax, name)
+
+    seen = []
+    monkeypatch.setattr(ti, "_batched_route",
+                        lambda uvs, dev: seen.append(dev.type) or uvs.ndim == 4)
+    monkeypatch.setattr(ji, "jax", _OffCpu())
+    calls = {}
+    for module, who in ((ti, "torch"), (ji, "jax")):
+        for name in ("get_intrinsics_batch", "estimate_pose_batch"):
+            real, key = getattr(module, name), f"{who}.{name}"
+            calls[key] = 0
+            monkeypatch.setattr(module, name, lambda *a, _r=real, _k=key, **kw: (
+                calls.__setitem__(_k, calls[_k] + 1), _r(*a, **kw))[1])
+    args = (rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints)
+    ref = jmct.calibrate(*args, verbose=False, n_samples_for_intrinsics=N_SAMPLES)
+    got = ti.calibrate(*args, verbose=False, n_samples_for_intrinsics=N_SAMPLES, device=CPU)
+    assert seen == ["cpu"] and set(calls.values()) == {1}
+    _assert_calibration_close(got, ref)
+    monkeypatch.setattr(ti, "_batched_route", lambda uvs, dev: False)
+    _assert_calibration_close(ti.calibrate(*args, verbose=False,
+                                           n_samples_for_intrinsics=N_SAMPLES, device=CPU), ref)
+    assert not ti._batched_route(np.asarray(rig.all_calib_uvs), torch.device("cpu"))
+
+
 def test_repair_bad_intrinsics_matches_jax(rig, monkeypatch, capsys):
     """Camera 3 (a leaf) comes out of the intrinsics stage with fx 35% off
     (as tests/test_calibration.py:222-258 corrupts it); both packages flag
