@@ -163,7 +163,29 @@ line each:
    h5py (a round trip where h5py exists); the CLI's ``benchmark`` (platform
    gpu, final cost at most (1 + 1e-5) x the JAX package's on its 995
    frames), ``export`` json -> jarvis -> json and
-   ``calibrate``'s ImportError naming h5py.
+   ``calibrate``'s ImportError naming h5py;
+21. the frame-sharded solve (``parallel/``, ``sharded_phase``): (a)
+   ``sharded_lm_solve`` at BASELINE.json config 5's shape (64 cameras x
+   20,000 frames x 35 points from ``make_synthetic_rig(64, 20000, seed=11)``,
+   started from the truth + N(0, 1e-3) extrinsics), bench options with
+   ``frame_chunk=256``, both BA kernels, world size 1 over NCCL, against
+   ``lm_solve`` in this process: cost trajectory within 2e-6 (bit-equal
+   expected), final cost <= 1.05 x the noise floor, all-reduces and their
+   bytes as lm_solve's psum points account for, block / cost launches
+   (wrapper = profiler), the device's busy share, peak memory, walls in
+   turns; (c) ``sharded_triangulate`` at phase 17's 6 x 1,048,576 points
+   within 1e-10 of ``triangulate``, NaN alike; then two spawned ranks on
+   cuda:0 over gloo (NCCL refuses two ranks on one device), each starting
+   with TF32 on: (b) the bench problem at 922 and 921 frames (461 + 461,
+   one padded): the cost trajectory within 5e-5 of ``lm_solve`` over the
+   same frame slabs for 3 iterations (the dense solve's difference printed),
+   final cost <= 12338.04, ranks bit-identical in n_iters, nfev, history and
+   cameras, TF32 off inside their solves; ``bundle_adjust(mesh=...)`` from
+   JAX's start: phase 11's frames, cost <= JAX's x (1 + 1e-5), pose repair
+   logged as skipped; (c) at two ranks, each held to ``triangulate`` in its
+   process; (d) ``distributed_calibration_detection`` on two of phase 20's
+   videos (their first 128 frames, one per rank, the corner kernel on each;
+   the HDF5 cache left out), bit-equal to both detected in one process.
 
 Then one line naming the host packages this machine has (h5py, yaml,
 pandas, cv2, libavformat; it gates nothing),
@@ -180,9 +202,11 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1896,10 +1920,12 @@ def decoded_frames(path):
         reader.close()
 
 
-def video_phase(torch, dev, errs):
+def video_phase(torch, dev, errs, keep_dir):
     """Phase 20: rendered videos -> ``_detect_video`` (corner kernel) ->
     ``_assemble_aligned`` -> ``cli._calibrate_from_detections`` (both BA
-    kernels) -> ``save_calibration`` / ``load_calibration``, then the CLI."""
+    kernels) -> ``save_calibration`` / ``load_calibration``, then the CLI.
+    Returns copies in ``keep_dir`` of the first SHARD_VIDEOS videos (phase
+    21d's input)."""
     import contextlib
     import io
     import shutil
@@ -2195,10 +2221,452 @@ def video_phase(torch, dev, errs):
         log("20 CLI", f"benchmark {json.dumps(rec)}; export json -> jarvis -> json max |diff| "
             f"{io_err['export']:.1e}; "
             + calibrate_text)
+        kept = [shutil.copy(p, keep_dir) for p in paths[:SHARD_VIDEOS]]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("20 phase", f"{time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return kept
+
+
+# Phase 21: the frame-sharded solve (parallel/). 21a: BASELINE.json config 5's
+# shape (a 64-camera volumetric stage, 20,000 frames, distributed Schur BA),
+# started from the truth perturbed as tests/test_scale_64cam.py does (at this
+# size calibrate would take the phase), world size 1 over NCCL. 21b-21d: two
+# ranks on the one card. NCCL refuses two ranks on one device, so these are
+# two spawned processes on cuda:0 over gloo, which stages their all-reduces
+# through the host; each rank's kernels run on the card.
+SHARD_BIG = dict(n_cameras=64, n_frames=20000, noise_px=NOISE_PX, dropout=0.25, seed=11)
+SHARD_START_SD, SHARD_START_SEED = 1e-3, 1  # tests/test_scale_64cam.py:29-31
+SHARD_RTOL_ONE = 2e-6  # __graft_entry__.py:93-115, the sharded solve's certificate
+# JAX's kernel-route tolerance for a sharded solve (tests/test_ba_pallas.py:
+# 424-432) over the first iterations, held against lm_solve over the same
+# frame slabs (frame_chunk = a rank's frames). Against the dense lm_solve the
+# f32 recipe's sum order alone moves the bench problem's costs by ~1e-4 (a
+# one-process solve with two slabs does too), so that difference is printed.
+SHARD_RTOL_RANKS, SHARD_RANK_ITERS = 5e-5, 3
+SHARD_RANKS, SHARD_FRAMES = 2, (922, 921)  # 461 + 461; 461 + 460 and a padded frame
+SHARD_VIDEOS, SHARD_VIDEO_FRAMES = 2, 128
+SHARD_TRI_RTOL = 1e-10
+SHARD_TIMEOUT_S = 180  # a rank waiting on a dead peer raises after this
+
+
+def collective_bytes(C, nfev, n_iters):
+    """(all-reduces, bytes) that lm_solve's psum points take on the f32
+    recipe with f64 data: the first cost; per try the cost, U and g_cam
+    (f64), S_cross and rhs_cross (f32, the solve dtype); per iteration g_cam
+    and the sums of g_pose^2 and of the pose steps squared (f64)."""
+    tries = nfev - 1
+    per_try = 8 + 8 * (144 * C + 12 * C) + 4 * ((12 * C) ** 2 + 12 * C)
+    return 1 + 5 * tries + 3 * n_iters, 8 + tries * per_try + n_iters * (96 * C + 16)
+
+
+def precision_flags(torch):
+    return " ".join(map(str, (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32,
+                              torch.get_float32_matmul_precision())))
+
+
+def detect_without_cache(video_paths, detection_fun=None, detection_options=None,
+                         aligned_frame_ixs=None, device=None, **_):
+    """``run_calibration_detection`` without its HDF5 cache (this host may
+    have no h5py, and a cache would hand the second call the first one's
+    answer): ``_detect_video`` on each video's aligned frames, then
+    ``_assemble_aligned``, as that function does."""
+    from multicam_calibration_tpu_torch.detection import video
+
+    uvs, ixs, sizes = [], [], []
+    for i, path in enumerate(video_paths):
+        use = aligned_frame_ixs[:, i]
+        u, f, size, _ = video._detect_video(path, detection_fun, detection_options,
+                                            use[~np.isnan(use)].astype(int), device=device)
+        uvs.append(u)
+        ixs.append(f)
+        sizes.append(tuple(size))
+    return video._assemble_aligned(uvs, ixs, aligned_frame_ixs), sizes
+
+
+def shard_rank(rank, port, outdir, videos):
+    """One of phase 21's two ranks on cuda:0 (gloo): 21b's sharded solves
+    and bundle_adjust on the mesh, 21c's sharded_triangulate, 21d's
+    distributed_calibration_detection; kernel launches counted from 0 just
+    before each path and read just after. Writes rank{rank}.npz."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.convert import lm_options_from_jax
+    from multicam_calibration_tpu_torch.detection import video
+    from multicam_calibration_tpu_torch.device import cuda_device
+    from multicam_calibration_tpu_torch.models import lm_core
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
+    from multicam_calibration_tpu_torch.parallel import (
+        collectives, distributed_calibration_detection, make_frame_mesh, sharded_lm_solve,
+        sharded_triangulate)
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    # A rank that forgets the numerics contract: TF32 on; the port pins it
+    # off inside every call.
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    flags = set()
+    solve = lm_core._equilibrated_solve
+
+    def recording_solve(M, b):
+        flags.add(precision_flags(torch))
+        return solve(M, b)
+
+    lm_core._equilibrated_solve = recording_solve
+    out = {}
+
+    def zero():
+        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        cc.corner_response_peaks.launches = 0
+        collectives.all_reduce.calls = collectives.all_reduce.bytes = 0
+
+    def launches():
+        return [ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches,
+                cc.corner_response_peaks.launches, collectives.all_reduce.calls,
+                collectives.all_reduce.bytes]
+
+    try:
+        dev = cuda_device()
+        mesh = make_frame_mesh(device=dev)
+        cam0, poses0, obs, mask, objp = bench_problem(torch, dev)
+        opts = lm_options_from_jax(BENCH_JAX_OPTIONS)
+        sharded_lm_solve(cam0, poses0, obs, mask, objp, dataclasses.replace(opts, max_iters=1),
+                         mesh=mesh)  # warm-up: the process's first solve
+        for F in SHARD_FRAMES:
+            zero()
+            (cam, poses, info), wall = timed(torch, lambda: sharded_lm_solve(
+                cam0, poses0[:F], obs[:, :F], mask[:, :F], objp, opts, mesh=mesh))
+            out.update({f"f{F}_cam": cam.cpu().numpy(), f"f{F}_poses": poses.cpu().numpy(),
+                        f"f{F}_history": info["history"].cpu().numpy(),
+                        f"f{F}_info": np.array([info["n_iters"], info["nfev"],
+                                                info["final_cost"], wall]),
+                        f"f{F}_counts": np.array(launches())})
+
+        # bundle_adjust on the mesh from JAX's calibrate outputs (phase 11's start).
+        ref = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+        rig = mct.make_synthetic_rig(**RIG)
+        metrics.configure(os.path.join(outdir, f"metrics{rank}.jsonl"))
+        zero()
+        (_, _, _, uf, info), wall = timed(torch, lambda: mct.bundle_adjust(
+            rig.all_calib_uvs, ref["ext"], list(zip(ref["K"], ref["dist"])),
+            rig.calib_objpoints, ref["poses"], verbose=False, device=dev, mesh=mesh))
+        metrics.configure(None)
+        out.update(ba_uf=uf, ba_info=np.array([float(info["final_cost"]), int(info["n_iters"]),
+                                               wall]), ba_counts=np.array(launches()))
+
+        # 21c at two ranks, held against the port's triangulate in this process.
+        views, _ = big_triangulation_views(torch, dev, rig)
+        cams = (list(rig.all_extrinsics), rig.all_intrinsics)
+        points = make_frame_mesh(axis_name="points", device=dev)
+        sharded_triangulate(views, *cams, mesh=points, return_sd=True, device=dev)  # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        (pts, sd), wall = timed(torch, lambda: sharded_triangulate(
+            views, *cams, mesh=points, return_sd=True, device=dev))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ref_pts, ref_sd = mct.triangulate(views, *cams, return_sd=True, device=dev)
+        worst = [close_to(a.cpu().numpy(), b.cpu().numpy(), SHARD_TRI_RTOL, 0.0,
+                          f"rank {rank} sharded_triangulate {k}")
+                 for a, b, k in ((pts, ref_pts, "points"), (sd, ref_sd, "sd"))]
+        out["tri"] = np.array([*worst, wall, peak, int(torch.isfinite(pts).all(-1).sum())])
+        del views, pts, sd, ref_pts, ref_sd
+
+        # 21d: each rank detects its video's first frames; rank 0 then holds
+        # the result against both videos detected in this one process.
+        video.run_calibration_detection = detect_without_cache
+        aligned = np.stack([np.arange(SHARD_VIDEO_FRAMES)] * len(videos), axis=1).astype(float)
+        zero()
+        (uvs, sizes), wall = timed(torch, lambda: distributed_calibration_detection(
+            videos, None, {"board_shape": VIDEO_BOARD}, aligned_frame_ixs=aligned, device=dev))
+        out.update(dcd_uvs=uvs, dcd_sizes=np.asarray(sizes), dcd_counts=np.array(launches()),
+                   dcd_wall=np.array(wall))
+        if rank == 0:
+            ref_uvs, ref_sizes = detect_without_cache(
+                videos, video.detect_chessboard, {"board_shape": VIDEO_BOARD}, aligned,
+                device=dev)
+            out["dcd_equal"] = np.array(np.array_equal(uvs, ref_uvs, equal_nan=True)
+                                        and list(map(tuple, sizes)) == ref_sizes)
+        out["flags"] = np.array(sorted(flags))
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(outdir, videos):
+    """Phase 21's two ranks, spawned together; raises unless both exit 0
+    within the deadline (a straggler is killed)."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, port, outdir, videos))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 4 * SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * SHARD_RANKS, f"phase 21 ranks exited {codes}")
+    return [dict(np.load(os.path.join(outdir, f"rank{r}.npz"))) for r in range(SHARD_RANKS)]
+
+
+def sharded_phase(torch, dev, bench_rig, videos):
+    """Phase 21: sharded_lm_solve at BASELINE config 5's shape (world size 1,
+    NCCL) against lm_solve; sharded_triangulate at phase 17's size; then two
+    gloo ranks on the card (run_ranks)."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.convert import lm_options_from_jax
+    from multicam_calibration_tpu_torch.models import lm_core
+    from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
+    from multicam_calibration_tpu_torch.ops import ba_cuda
+    from multicam_calibration_tpu_torch.parallel import (
+        collectives, make_frame_mesh, sharded_lm_solve, sharded_triangulate)
+
+    t_phase = time.perf_counter()
+    rig, t_rig = timed(torch, lambda: mct.make_synthetic_rig(**SHARD_BIG))
+    full = ~np.isnan(rig.all_calib_uvs).any((-1, -2))
+    use = np.nonzero(full.sum(0) > 1)[0]
+    obs_np = rig.all_calib_uvs[:, use]
+    ext = rig.all_extrinsics + np.random.default_rng(SHARD_START_SEED).normal(
+        0, SHARD_START_SD, rig.all_extrinsics.shape)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    cam0, poses0 = as_t(_params_to_arrays(ext, rig.all_intrinsics)), as_t(rig.calib_poses[use])
+    obs, mask = as_t(np.nan_to_num(obs_np)), as_t(~np.isnan(obs_np).any(-1))
+    objp = as_t(rig.calib_objpoints)
+    del obs_np, rig
+    C, F, N = mask.shape
+    opts = dataclasses.replace(lm_options_from_jax(BENCH_JAX_OPTIONS), frame_chunk=CHUNK)
+    check(lm_core._cuda_block_build(opts, torch.float64, objp)
+          and lm_core._cuda_cost_eval(opts, torch.float64, objp),
+          f"the recipe does not reach both kernels: {opts}")
+    mesh = make_frame_mesh(device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == backend and mesh.size() == 1,
+          f"{dist.get_backend()} group of {mesh.size()}")
+    sharded = lambda: sharded_lm_solve(cam0, poses0, obs, mask, objp, opts, mesh=mesh)  # noqa: E731
+    single = lambda: lm_core.lm_solve(cam0, poses0, obs, mask, objp, opts)  # noqa: E731
+
+    def run(fn):
+        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        collectives.all_reduce.calls = collectives.all_reduce.bytes = 0
+        collectives.all_gather.calls = collectives.all_gather.bytes = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        (cam, poses, info), wall = timed(torch, fn)
+        return SimpleNamespace(
+            cam=cam, poses=poses, info=info, wall=wall, nb=ba_cuda.ba_chunk_blocks.launches,
+            nc=ba_cuda.ba_chunk_cost.launches, ar=(collectives.all_reduce.calls,
+                                                  collectives.all_reduce.bytes),
+            ag=(collectives.all_gather.calls, collectives.all_gather.bytes),
+            peak=torch.cuda.max_memory_allocated(dev))
+
+    warm = run(lambda: sharded_lm_solve(cam0, poses0, obs, mask, objp,
+                                        dataclasses.replace(opts, max_iters=2), mesh=mesh))
+    main = run(sharded)  # the main path: counts from 0, read just after
+    check(main.nb > 0 and main.nc > 0, "the sharded solve did not launch both BA kernels")
+    one = run(single)
+    # Two more walls each, in turns: sharded, single, single, sharded.
+    walls = {"sharded": [main.wall], "single": [one.wall]}
+    for label, fn in (("single", single), ("sharded", sharded)):
+        walls[label].append(run(fn).wall)
+    n = main.info["n_iters"]
+    nc_slabs = lm_core._chunking(opts, F)[2]
+    check(main.nb == n * nc_slabs and main.nc == main.info["nfev"],
+          f"block calls {main.nb}, cost calls {main.nc}; n_iters {n} x {nc_slabs} slabs, "
+          f"nfev {main.info['nfev']}")
+    check(n == one.info["n_iters"], f"n_iters {n} vs lm_solve's {one.info['n_iters']}")
+    h_main = main.info["history"][:n, 0].cpu().numpy()
+    h_one = one.info["history"][:n, 0].cpu().numpy()
+    traj = float(np.max(np.abs(h_main - h_one) / np.abs(h_one)))
+    check(traj <= SHARD_RTOL_ONE, f"cost trajectory off lm_solve's by {traj:.3e}")
+    bit_equal = (torch.equal(main.info["history"], one.info["history"])
+                 and torch.equal(main.cam, one.cam) and torch.equal(main.poses, one.poses))
+    n_obs = int(mask.sum())
+    floor_cost = 2 * n_obs * 0.5 * NOISE_PX**2 * (1 - 0.75 * NOISE_PX**2)
+    cost = main.info["final_cost"]
+    check(cost <= 1.05 * floor_cost, f"final cost {cost:.1f} above 1.05 x the noise floor "
+          f"{floor_cost:.1f} of its {n_obs} observations")
+    expected = collective_bytes(C, main.info["nfev"], n)
+    check(main.ar == expected, f"all-reduces (calls, bytes) {main.ar}, lm_solve's psum points "
+          f"account for {expected}")
+    per_try = collective_bytes(C, 2, 0)[1] - 8
+
+    def all_reduce_ms(x, reps=20):
+        """Host ms of one all-reduce of x over the mesh: reps in a row after
+        a warm-up, synchronised at the end."""
+        collectives.all_reduce(x, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            collectives.all_reduce(x, mesh)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    ar_ms = (all_reduce_ms(torch.zeros((), dtype=torch.float64, device=dev)),
+             all_reduce_ms(torch.zeros((C, 12, C, 12), device=dev)))
+
+    # The profiler: kernel launches and the device's busy share of a solve.
+    r, prof = profiled(torch, lambda: run(sharded), "21a sharded solve")
+    c10d_ms = sum(a.cpu_time_total for a in prof.key_averages()
+                  if a.key.startswith("c10d::")) / 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name) for e in events]
+    events = [e for e in events if not is_annotation(e)]
+    nk = (names.count("ba_blocks_kernel"), names.count("ba_cost_kernel"))
+    check(nk == (r.nb, r.nc), f"profiler: kernel launches {nk}, wrapper calls {r.nb}, {r.nc}")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    log("21a sharded solve", f"BASELINE config 5's shape: {C} cameras x {F} frames (of "
+        f"{SHARD_BIG['n_frames']}, those >= 2 cameras see) x {N} points, {n_obs} observations, "
+        f"from the truth + N(0, {SHARD_START_SD:g}) extrinsics, rig made in {t_rig:.2f} s; "
+        f"bench options + frame_chunk={CHUNK} ({nc_slabs} slabs), world size 1 over {backend}: "
+        f"sharded_lm_solve walls " + ", ".join(f"{w:.4f}" for w in walls["sharded"])
+        + f" s (warm-up {warm.wall:.4f} s), lm_solve " + ", ".join(
+            f"{w:.4f}" for w in walls["single"]) + f" s (in turns: sharded, single, single, "
+        f"sharded); n_iters {n}, nfev {main.info['nfev']}; cost "
+        f"{main.info['initial_cost']:.1f} -> {cost:.1f} = {cost / floor_cost:.4f} x the noise "
+        f"floor {floor_cost:.1f}; trajectory vs lm_solve max rel diff {traj:.3e} (bit-equal: "
+        f"{bit_equal}); all-reduces {main.ar[0]} ({main.ar[1]} B) = 1 + 5 per try + 3 per "
+        f"iteration, {per_try} B a try (S_cross {4 * (12 * C) ** 2} B), all-gathers "
+        f"{main.ag[0]} ({main.ag[1]} B); one all-reduce {ar_ms[0]:.4f} ms (cost) / {ar_ms[1]:.4f} "
+        f"ms (S_cross) of host time, c10d ops {c10d_ms:.1f} ms of the profiled solve's host "
+        f"time; block / cost calls {main.nb} / {main.nc}, profiler "
+        f"{nk[0]} / {nk[1]}; profiled solve {r.wall:.4f} s, device busy {busy:.1f} ms "
+        f"({busy / (1e3 * r.wall):.1%}), {len(events)} device ops; peak device memory "
+        f"{main.peak / 2**30:.3f} GiB (lm_solve {one.peak / 2**30:.3f})")
+    del obs, mask, main, one, r, prof, events
+
+    # 21c at world size 1: phase 17's size.
+    views, _ = big_triangulation_views(torch, dev, bench_rig)
+    cams = (list(bench_rig.all_extrinsics), bench_rig.all_intrinsics)
+    points = make_frame_mesh(axis_name="points", device=dev)
+    sharded_triangulate(views, *cams, mesh=points, return_sd=True, device=dev)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    (pts, sd), wall = timed(torch, lambda: sharded_triangulate(views, *cams, mesh=points,
+                                                              return_sd=True, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ref_pts, ref_sd = mct.triangulate(views, *cams, return_sd=True, device=dev)
+    worst = [close_to(a.cpu().numpy(), b.cpu().numpy(), SHARD_TRI_RTOL, 0.0, k)
+             for a, b, k in ((pts, ref_pts, "sharded points"), (sd, ref_sd, "sharded sd"))]
+    tri_one = (worst, wall, peak)
+    del views, pts, sd, ref_pts, ref_sd
+    dist.destroy_process_group()
+
+    # 21b-21d: two ranks on the card; the single-rank solves they are held to.
+    cam_b, poses_b, obs_b, mask_b, objp_b = bench_problem(torch, dev)
+    bench_opts = lm_options_from_jax(BENCH_JAX_OPTIONS)
+    ref = {(f, chunk): lm_core.lm_solve(
+        cam_b, poses_b[:f], obs_b[:, :f], mask_b[:, :f], objp_b,
+        dataclasses.replace(bench_opts, frame_chunk=chunk))[2]
+        for f in SHARD_FRAMES for chunk in (None, -(-f // SHARD_RANKS))}
+    del cam_b, poses_b, obs_b, mask_b, objp_b
+    torch.cuda.empty_cache()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ranks, t_ranks = timed(torch, lambda: run_ranks(outdir, videos))
+        skips = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(outdir, f"metrics{r}.jsonl")) as f:
+                skips.append(sum(json.loads(ln)["event"] == "ba_pose_repair_skipped"
+                                 for ln in f))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    r0 = ranks[0]
+    for r, rr in enumerate(ranks):
+        check(rr["flags"].tolist() == ["False False highest"],
+              f"rank {r} solved with TF32 / precision {rr['flags'].tolist()}")
+        for k in ("f922_cam", "f922_history", "f921_cam", "f921_history", "ba_uf",
+                  "dcd_uvs", "dcd_sizes"):
+            check(np.array_equal(rr[k], r0[k], equal_nan=True), f"rank {r} differs in {k}")
+        for F in SHARD_FRAMES:
+            check(np.array_equal(rr[f"f{F}_info"][:2], r0[f"f{F}_info"][:2]),
+                  f"rank {r}: n_iters, nfev {rr[f'f{F}_info'][:2]} vs rank 0's")
+            check(rr[f"f{F}_counts"][0] > 0 and rr[f"f{F}_counts"][1] > 0,
+                  f"rank {r}, {F} frames: BA kernels not launched {rr[f'f{F}_counts']}")
+        check(rr["ba_counts"][0] > 0 and rr["ba_counts"][1] > 0,
+              f"rank {r}: bundle_adjust did not launch both BA kernels")
+        check(rr["dcd_counts"][2] > 0, f"rank {r}: the corner kernel was not launched")
+        check(skips[r] >= 1, f"rank {r}: pose repair not logged as skipped")
+    rows = []
+
+    def traj(a, b):
+        k = min(SHARD_RANK_ITERS, len(a), len(b))
+        return float(np.max(np.abs(a[:k] - b[:k]) / np.abs(b[:k])))
+
+    for F in SHARD_FRAMES:
+        info = r0[f"f{F}_info"]
+        slabs, dense = ref[F, -(-F // SHARD_RANKS)], ref[F, None]
+        costs = {k: v["history"][:v["n_iters"], 0].cpu().numpy() for k, v in
+                 (("slabs", slabs), ("dense", dense))}
+        got = r0[f"f{F}_history"][:int(info[0]), 0]
+        rel = traj(got, costs["slabs"])
+        check(rel <= SHARD_RTOL_RANKS, f"{F} frames: cost trajectory off lm_solve's over the "
+              f"same slabs by {rel:.3e}")
+        check(info[2] <= SCIPY_TRF_COST, f"{F} frames: final cost {info[2]} above "
+              f"{SCIPY_TRF_COST}")
+        counts = [rr[f"f{F}_counts"] for rr in ranks]
+        rows.append(f"{F} frames ({' + '.join(str(-(-F // SHARD_RANKS)) for _ in ranks)}"
+                    f"{', one padded' if F % SHARD_RANKS else ''}): n_iters {int(info[0])} nfev "
+                    f"{int(info[1])}, final cost {info[2]:.4f}; lm_solve over the same slabs "
+                    f"{slabs['n_iters']} / {slabs['nfev']}, {slabs['final_cost']:.4f}, first "
+                    f"{SHARD_RANK_ITERS} iterations' costs max rel diff {rel:.2e}; dense "
+                    f"lm_solve {dense['n_iters']} / {dense['nfev']}, {dense['final_cost']:.4f}, "
+                    f"max rel diff {traj(got, costs['dense']):.2e} (dense vs slabs in one "
+                    f"process {traj(costs['slabs'], costs['dense']):.2e}); walls "
+                    + ", ".join(f"{rr[f'f{F}_info'][3]:.4f}" for rr in ranks)
+                    + " s; per rank block / cost calls, all-reduces (bytes) "
+                    + ", ".join(f"{c[0]} / {c[1]}, {c[3]} ({c[4]})" for c in counts))
+    bench_ref = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
+    check(np.array_equal(r0["ba_uf"], bench_ref["use_frames"]),
+          "bundle_adjust on the mesh: use_frames differ from phase 11's (JAX's)")
+    ba_cost = float(r0["ba_info"][0])
+    check(ba_cost <= float(bench_ref["final_cost"]) * (1 + BA_COST_RTOL),
+          f"bundle_adjust on the mesh: final cost {ba_cost} above JAX's "
+          f"{float(bench_ref['final_cost'])} x (1 + {BA_COST_RTOL:g})")
+    check(bool(r0["dcd_equal"]), "distributed_calibration_detection differs from one process")
+    log("21b two ranks", f"gloo on one {dev.type} device, bench problem, bench options: "
+        + "; ".join(rows) + f"; ranks bit-identical in n_iters, nfev, history, cameras; TF32 "
+        f"off inside each rank's solves; bundle_adjust(mesh=...) from JAX's start: "
+        f"{len(r0['ba_uf'])} frames as phase 11's, final cost {ba_cost:.4f} (JAX "
+        f"{float(bench_ref['final_cost']):.4f}), n_iters {int(r0['ba_info'][1])}, walls "
+        + ", ".join(f"{rr['ba_info'][2]:.4f}" for rr in ranks) + " s, block / cost calls "
+        + ", ".join(f"{rr['ba_counts'][0]} / {rr['ba_counts'][1]}" for rr in ranks)
+        + f", pose repair skipped (logged {skips})")
+    log("21c sharded_triangulate", f"{len(bench_rig.all_extrinsics)} x {TRI_BIG['n_points']} "
+        f"points (phase 17's), return_sd: world size 1 ({backend}) wall {tri_one[1]:.4f} s, peak "
+        f"{tri_one[2] / 2**30:.3f} GiB, within {SHARD_TRI_RTOL:g} of triangulate (worst "
+        f"err/tol {max(tri_one[0]):.2e}), NaN alike; two ranks (gloo): walls "
+        + ", ".join(f"{rr['tri'][2]:.4f}" for rr in ranks) + " s, peaks "
+        + ", ".join(f"{rr['tri'][3] / 2**30:.3f}" for rr in ranks) + " GiB, worst err/tol "
+        + ", ".join(f"{max(rr['tri'][:2]):.2e}" for rr in ranks) + f", {int(r0['tri'][4])} "
+        "finite points")
+    log("21d distributed detection", f"{len(videos)} of phase 20's videos, first "
+        f"{SHARD_VIDEO_FRAMES} frames, one per rank: bit-equal to both detected in one process "
+        f"({int(np.isfinite(r0['dcd_uvs']).all((-1, -2)).sum())} detections, image sizes "
+        f"{r0['dcd_sizes'].tolist()}); walls " + ", ".join(f"{float(rr['dcd_wall']):.2f}"
+                                                          for rr in ranks)
+        + " s; corner launches per rank " + ", ".join(str(rr["dcd_counts"][2]) for rr in ranks)
+        + f"; ranks' process wall {t_ranks:.1f} s")
+    log("21 phase", f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def host_packages():
@@ -2414,7 +2882,12 @@ def main():
     triangulation_phase(torch, dev, bench_rig, analysis, port_ba)
     flatibration_phase(torch, dev, analysis)
     rolling_phase(torch, dev, analysis, errs)
-    video_phase(torch, dev, errs)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        videos = video_phase(torch, dev, errs, keep)
+        sharded_phase(torch, dev, bench_rig, videos)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     log("host packages", host_packages())
 
     print(json.dumps({"kernels": [

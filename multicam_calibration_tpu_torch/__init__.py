@@ -3,7 +3,7 @@
 The same module layout and public names as the JAX package, written in
 PyTorch for one NVIDIA GPU (Hopper, sm_90a), with the JAX package's Pallas
 TPU kernels replaced by hand-written CUDA kernels (``csrc/``). It imports
-neither JAX nor the JAX package. Ported so far: the calibration pipeline
+neither JAX nor the JAX package. Ported: the calibration pipeline
 (``models.initialize.calibrate`` -> ``models.bundle_adjustment.bundle_adjust``
 over the Schur-LM engine ``models.lm_core``) with its geometry ops and
 masked reductions, the synthetic rig, the stage metrics
@@ -17,7 +17,8 @@ path from videos to a saved calibration: video decode and the detection
 cache (``detection.video``, ``detection.native_video``), calibration I/O and
 config (``utils.io``, ``utils.config``), the residual metric and QC plots
 (``viz``), the FLOP model (``utils.flops``) and the CLI (``cli``, ``python
--m multicam_calibration_tpu_torch``); see ROADMAP.md for the rest.
+-m multicam_calibration_tpu_torch``), and the frame-sharded solve over
+``torch.distributed`` (``parallel``).
 
 Entry points take numpy input and run on the CUDA device unless the caller
 passes ``device="cpu"`` (or CPU tensors).

@@ -40,14 +40,19 @@ def with_highest_precision(fn):
     return wrapped
 
 
-def cuda_device(index: int = 0) -> torch.device:
+def cuda_device(index: int | None = None) -> torch.device:
     """The CUDA device the card path runs on; raises when there is none.
 
-    There is deliberately no CPU fallback: a measurement or kernel run that
-    silently lands on the CPU would report CPU numbers as device numbers.
+    None means the current device: card 0, or the card a process of a
+    multi-process run selected (``torch.cuda.set_device``; under
+    ``torchrun`` its ``LOCAL_RANK``). There is deliberately no CPU fallback:
+    a measurement or kernel run that silently lands on the CPU would report
+    CPU numbers as device numbers.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
+    if index is None:
+        index = torch.cuda.current_device()
     if index >= torch.cuda.device_count():
         raise RuntimeError(
             f"CUDA device {index} requested, {torch.cuda.device_count()} present"

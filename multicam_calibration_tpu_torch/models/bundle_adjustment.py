@@ -3,8 +3,8 @@
 Counterpart of ``multicam_calibration_tpu/models/bundle_adjustment.py``:
 the same parameter layout, the same outlier/frame-selection semantics and
 return structure, with :mod:`.lm_core` as the solver. ``bundle_adjust``
-runs on one device (``mesh``, the frame-sharded solve, is not ported:
-ROADMAP.md, Queue 1, item 7).
+runs on one device, or with ``mesh`` frame-sharded over the processes of a
+``torch.distributed`` device mesh (:mod:`..parallel`).
 
 Entry points that take numpy input run on ``device``: None means the CUDA
 device (raising without one); pass ``device="cpu"`` for the CPU.
@@ -368,14 +368,21 @@ def bundle_adjust(
     On the CPU only ``jac_dtype="float32"``, as in JAX. After a
     mixed-precision solve a short f64 polish (``max_iters=10``) runs on the
     same device in native f64 (``info["polish_on_cpu"]`` is always False).
-    ``mesh`` (frame sharding) raises NotImplementedError.
+
+    ``mesh`` (a 1-D ``DeviceMesh`` from :func:`..parallel.make_frame_mesh`;
+    every rank calls with the same arguments) shards the frames of the
+    solve and of the f64 polish over its processes
+    (:func:`..parallel.sharded_lm_solve`); every rank returns the same
+    result. Pose repair is skipped on a mesh (logged as
+    ``ba_pose_repair_skipped``): its polish would run unsharded.
 
     Checkpoint/resume: with ``checkpoint_path`` set, the optimizer state
     (params, damping, iteration count, frame selection) is saved as .npz
     every ``checkpoint_every`` iterations (default 10) and a killed run
     resumes from the file, guarded by the content fingerprint. The file
     format and fingerprint are the JAX package's, so a checkpoint resumes
-    in either package.
+    in either package. On a mesh only rank 0 writes the file, and every
+    rank reads it.
 
     Stage timers (``utils.metrics``): ``ba.select_frames``, ``ba.lm_solve``,
     ``ba.f64_polish``, ``ba.pose_repair``.
@@ -383,12 +390,14 @@ def bundle_adjust(
     Returns (adjusted_extrinsics, adjusted_intrinsics, adjusted_calib_poses,
     use_frames, result_info), all numpy.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the frame-sharded solve is not ported yet (ROADMAP.md, "
-            "Queue 1, item 7)"
-        )
     dev = resolve_device(device)
+    writes_checkpoint = True
+    if mesh is not None and checkpoint_path is not None:
+        from ..parallel.collectives import all_reduce, rank_and_size
+
+        writes_checkpoint = rank_and_size(mesh)[0] == 0
+        # Orders this read after rank 0's writes of an earlier call.
+        all_reduce(torch.zeros(1, device=dev), mesh)
     all_calib_uvs = np.asarray(all_calib_uvs)
     n_cameras = all_calib_uvs.shape[0]
 
@@ -470,11 +479,16 @@ def bundle_adjust(
     })
 
     def _solve(cam_in, poses_in, chunk_opts, init_lam=None, init_grad0=None):
+        if mesh is not None:
+            from ..parallel.sharded import sharded_lm_solve
+
+            return sharded_lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
+                                    mesh=mesh, init_lam=init_lam, init_grad0=init_grad0)
         return lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
                         init_lam=init_lam, init_grad0=init_grad0)
 
     with metrics.timer("ba.lm_solve", n_cameras=n_cameras, n_frames=len(use_frames),
-                       sharded=False):
+                       sharded=mesh is not None):
         if checkpoint_path is None:
             cam, poses, info = _solve(cam0_t, poses0_t, opts)
         else:
@@ -503,23 +517,24 @@ def bundle_adjust(
                 grad0 = float(info["grad0"])
                 if first_cost is None:
                     first_cost = float(info["initial_cost"])
-                # Atomic write: a kill mid-savez must not corrupt the file.
-                tmp_path = checkpoint_path + ".tmp.npz"
-                np.savez(
-                    tmp_path,
-                    cam=_np(cam),
-                    poses=_np(poses),
-                    lam=lam,
-                    it_done=it_done,
-                    use_frames=np.asarray(use_frames),
-                    initial_cost=first_cost,
-                    grad0=-1.0 if grad0 is None else grad0,
-                    n_cameras=n_cameras,
-                    n_total_frames=all_calib_uvs.shape[1],
-                    fingerprint=fingerprint,
-                    converged=bool(info["converged"]),
-                )
-                os.replace(tmp_path, checkpoint_path)
+                if writes_checkpoint:
+                    # Atomic write: a kill mid-savez must not corrupt the file.
+                    tmp_path = checkpoint_path + ".tmp.npz"
+                    np.savez(
+                        tmp_path,
+                        cam=_np(cam),
+                        poses=_np(poses),
+                        lam=lam,
+                        it_done=it_done,
+                        use_frames=np.asarray(use_frames),
+                        initial_cost=first_cost,
+                        grad0=-1.0 if grad0 is None else grad0,
+                        n_cameras=n_cameras,
+                        n_total_frames=all_calib_uvs.shape[1],
+                        fingerprint=fingerprint,
+                        converged=bool(info["converged"]),
+                    )
+                    os.replace(tmp_path, checkpoint_path)
                 metrics.log("ba_checkpoint", path=checkpoint_path, it_done=it_done,
                             cost=float(info["final_cost"]))
                 if bool(info["converged"]):
@@ -563,6 +578,11 @@ def bundle_adjust(
 
     _emit_lm_history(info, verbose)
 
+    if repair_poses and mesh is not None:
+        # The repair's polish runs unsharded: it would hold every frame's W
+        # blocks on one device, which sharding exists to avoid.
+        metrics.log("ba_pose_repair_skipped", reason="mesh")
+        repair_poses = False
     if repair_poses:
         with metrics.timer("ba.pose_repair"):
             poses, n_repaired = _repair_bad_poses(cam, poses, obs, mask, objpoints, opts)

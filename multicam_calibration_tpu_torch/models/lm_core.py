@@ -27,8 +27,14 @@ recipe, the block build and the per-try cost run the hand-written kernels
 of :mod:`..ops.ba_cuda` (the block build once per frame slab, the cost
 once over all frames).
 
-Not ported yet (ROADMAP.md, Queue 1): frame sharding (``axis_name``),
-which raises ``NotImplementedError``.
+Frame sharding (``axis_name``: a process group or a 1-D ``DeviceMesh``;
+see :mod:`..parallel`): each process holds a slice of the frames and the
+functions all-reduce over the group where the JAX engine ``psum``s: the
+cost (either route), U and g_cam, S_cross and rhs_cross, and in
+``lm_solve`` the gradient norm, the gain ratio's diag(U), g_cam and pose
+term, and the step norm. ``build_normal_blocks`` returns local sums, as in
+JAX. Every value the host loop reads for a decision is all-reduced, so
+every rank takes the same branches.
 """
 from __future__ import annotations
 
@@ -131,9 +137,6 @@ class LMOptions:
 
 HIST_FIELDS = ("cost", "grad_norm", "step_norm", "lambda", "tries", "rel_drop")
 
-_ROADMAP = "not ported yet (ROADMAP.md, Queue 1: {})"
-
-
 def accelerator_recipe(device, gtol_rel=1e-6):
     """The JAX package's numerics for f64 data off the CPU, as LMOptions
     fields: Jacobians, J^T J blocks, per-observation products, per-try cost
@@ -158,11 +161,14 @@ def _torch_dtype(name):
     return dtype
 
 
-def _no_sharding(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: " + _ROADMAP.format("frame-sharded solve")
-        )
+def _psum(x, axis_name):
+    """``x`` summed over the frame shards of ``axis_name`` (the JAX
+    engine's ``lax.psum``); ``x`` itself without sharding."""
+    if axis_name is None:
+        return x
+    from ..parallel.collectives import all_reduce  # parallel imports this module
+
+    return all_reduce(x, axis_name)
 
 
 def _predict(cam_params, pose_params, objpoints):
@@ -296,10 +302,10 @@ def compute_cost(cam_params, pose_params, obs, mask, objpoints, opts,
     dtype and only the reduction in the data dtype. With ``cost_impl``
     routing to the CUDA kernel, the residual is f64 and the per-(c, f) f32
     fragments are reduced in the data dtype: in the kernel for f64 data,
-    here otherwise.
+    here otherwise. Under frame sharding the shards' costs are summed.
     """
-    _no_sharding(axis_name)
-    return _cost(cam_params, pose_params, obs, mask, objpoints, opts, None)
+    return _psum(_cost(cam_params, pose_params, obs, mask, objpoints, opts, None),
+                 axis_name)
 
 
 def _cost(cam_params, pose_params, obs, mask, objpoints, opts, prepared):
@@ -398,9 +404,11 @@ def build_normal_blocks(
     columns get zero Jacobian (their updates come out exactly 0 after the
     solve, whose zero diagonals are identity-padded in ``schur_solve``).
     With ``opts.frame_chunk`` < F the blocks come in the chunked layout of
-    :class:`NormalBlocks`.
+    :class:`NormalBlocks`. Under frame sharding (``axis_name``) every block
+    is the shard's own: the caller sums U, g_cam and cost over the shards
+    (``schur_solve`` and ``lm_solve`` do), as in the JAX package.
     """
-    _no_sharding(axis_name)
+    del axis_name
     return _build(cam_params, pose_params, obs, mask, objpoints, opts,
                   cam_free, pose_free, None)
 
@@ -735,9 +743,11 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
     Marquardt damping (lam * diag). Returns (dcam (C,12), dpose) in the
     blocks' dtype: dpose is (F,6) for dense blocks and (nc*ck, 6) for
     chunked ones (callers drop the padded rows, which are exactly 0). With
-    ``opts.solve_dtype`` set the solve runs in that dtype.
+    ``opts.solve_dtype`` set the solve runs in that dtype. Under frame
+    sharding (``axis_name``) U, g_cam, S_cross and rhs_cross are summed over
+    the shards, every rank solves the same 12C x 12C system, and the pose
+    back-substitution stays local.
     """
-    _no_sharding(axis_name)
     C = blocks.U.shape[0]
     dtype = blocks.U.dtype
     sd = (
@@ -746,8 +756,12 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
         else dtype
     )
     lam = float(lam)
-    U_d = _damp(blocks.U.to(sd), lam, eps)
-    g_cam = blocks.g_cam.to(sd)
+    # Summed over the shards in the blocks' dtype, then cast (the JAX engine
+    # casts first): the shards' partial sums then round as the chunked
+    # layout's slab sums do, so a solve sharded over k ranks takes the steps
+    # of the one-process solve with the same k frame slabs.
+    U_d = _damp(_psum(blocks.U, axis_name).to(sd), lam, eps)
+    g_cam = _psum(blocks.g_cam, axis_name).to(sd)
 
     def reduce_slab(V, W, g_pose):
         """Schur contribution of one frame slab: S_cross, rhs_cross and the
@@ -775,8 +789,8 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
         slabs = list(zip(V, W, g_pose))
     # Slab sums in slab order; one slab (dense) adds and copies nothing.
     S_cross, rhs_cross, V_invs = zip(*(reduce_slab(*slab) for slab in slabs))
-    S_cross = functools.reduce(torch.add, S_cross)
-    rhs_cross = functools.reduce(torch.add, rhs_cross)
+    S_cross = _psum(functools.reduce(torch.add, S_cross), axis_name)
+    rhs_cross = _psum(functools.reduce(torch.add, rhs_cross), axis_name)
     S = torch.block_diag(*U_d) - S_cross.reshape(12 * C, 12 * C)
     rhs = (g_cam - rhs_cross).reshape(12 * C)
     dcam = _equilibrated_solve(S, rhs).reshape(C, 12)
@@ -823,8 +837,11 @@ def lm_solve(
     ``n_iters``, ``lambda``, ``converged``, ``optimality``, ``nfev``,
     ``grad0``) and ``history``, a (max_iters, 6) tensor in the data dtype
     whose rows [:n_iters] hold :data:`HIST_FIELDS`.
+
+    With ``axis_name`` the arrays are this process's frame shard (see
+    :func:`..parallel.sharded_lm_solve`); every quantity a decision reads
+    is all-reduced over the group, so ``info`` is the same on every rank.
     """
-    _no_sharding(axis_name)
     dtype = cam_params.dtype
     F = pose_params.shape[0]
     prepared = None
@@ -835,7 +852,8 @@ def lm_solve(
 
     def cost_fn(cam, poses):
         with record_function("lm_solve.cost"):
-            return float(_cost(cam, poses, obs, mask, objpoints, opts, prepared))
+            return float(_psum(_cost(cam, poses, obs, mask, objpoints, opts, prepared),
+                               axis_name))
 
     nielsen = opts.damping_schedule == "nielsen"
     cost0 = cost_fn(cam_params, pose_params)
@@ -851,19 +869,21 @@ def lm_solve(
             blocks = _build(cam, poses, obs, mask, objpoints, opts, cam_free,
                             pose_free, prepared)
             grad_norm = float(torch.sqrt(
-                torch.sum(blocks.g_cam**2) + torch.sum(blocks.g_pose**2)
+                torch.sum(_psum(blocks.g_cam, axis_name)**2)
+                + _psum(torch.sum(blocks.g_pose**2), axis_name)
             ))
 
         def gain_ratio(lam_t, dcam, dpose, cost_try):
             """rho = actual / predicted reduction; for the Marquardt step
             (A + lam*D) h = g the model reduction is 0.5 * h^T (lam*D*h + g)."""
-            diag_u = torch.diagonal(blocks.U, dim1=-2, dim2=-1)
+            diag_u = _psum(torch.diagonal(blocks.U, dim1=-2, dim2=-1), axis_name)
+            g_cam = _psum(blocks.g_cam, axis_name)
             diag_v = torch.diagonal(
                 blocks.V.reshape(-1, 6, 6)[:F], dim1=-2, dim2=-1
             )
             g_pose = blocks.g_pose.reshape(-1, 6)[:F]
-            term_cam = torch.sum(dcam * (lam_t * diag_u * dcam + blocks.g_cam))
-            term_pose = torch.sum(dpose * (lam_t * diag_v * dpose + g_pose))
+            term_cam = torch.sum(dcam * (lam_t * diag_u * dcam + g_cam))
+            term_pose = _psum(torch.sum(dpose * (lam_t * diag_v * dpose + g_pose)), axis_name)
             pred = 0.5 * float(term_cam + term_pose)
             return (cost - cost_try) / max(pred, 1e-30)
 
@@ -873,7 +893,7 @@ def lm_solve(
         tries, accepted = 0, False
         while not accepted and tries < opts.max_tries and lam_t < opts.max_lambda:
             with record_function("lm_solve.schur_solve"):
-                dcam, dpose = schur_solve(blocks, lam_t, opts=opts)
+                dcam, dpose = schur_solve(blocks, lam_t, axis_name, opts=opts)
             dpose = dpose[:F]  # chunked solves return padded rows
             cam_try = cam + dcam
             poses_try = poses + dpose
@@ -913,7 +933,8 @@ def lm_solve(
         )
         step_norm = float(
             torch.sqrt(
-                torch.sum((cam_n - cam) ** 2) + torch.sum((poses_n - poses) ** 2)
+                torch.sum((cam_n - cam) ** 2)
+                + _psum(torch.sum((poses_n - poses) ** 2), axis_name)
             )
         )
         rows.append([cost_n, grad_norm, step_norm, lam_used, float(tries), rel_drop])

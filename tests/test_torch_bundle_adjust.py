@@ -174,9 +174,37 @@ def test_checkpoint_refuses_another_problem(problem, tmp_path):
         jmct.bundle_adjust(*problem[1], verbose=False, checkpoint_path=path, seed=1)
 
 
-def test_mesh_is_not_ported(problem):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        tba.bundle_adjust(*problem[1], verbose=False, device=CPU, mesh=object())
+def test_mesh_is_not_ported(problem, tmp_path):
+    """``mesh`` is ported: on a mesh of one process bundle_adjust equals the
+    run without one (no pose needed repair there) and logs the pose-repair
+    skip; tests/test_torch_parallel.py runs two ranks against JAX's mesh."""
+    import json
+
+    import torch.distributed as dist
+
+    from multicam_calibration_tpu_torch.parallel import make_frame_mesh
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    plain = tba.bundle_adjust(*problem[1], verbose=False, device=CPU)
+    assert "n_poses_repaired" not in plain[4]
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    metrics.configure(str(tmp_path / "metrics.jsonl"))
+    try:
+        got = tba.bundle_adjust(*problem[1], verbose=False, device=CPU,
+                                mesh=make_frame_mesh(device=CPU))
+    finally:
+        metrics.configure(None)
+        dist.destroy_process_group()
+    for a, b in zip((got[0], got[2], got[3]), (plain[0], plain[2], plain[3])):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(got[4]) == sorted(plain[4])
+    for k in got[4]:
+        np.testing.assert_array_equal(got[4][k], plain[4][k])
+    with open(tmp_path / "metrics.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    assert {"event": "ba_pose_repair_skipped", "reason": "mesh"} in [
+        {k: e[k] for k in ("event", "reason") if k in e} for e in events]
 
 
 @pytest.mark.parametrize("entry", [

@@ -156,14 +156,32 @@ def test_schur_solve_f32(tiny):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-3 * float(np.abs(b).max()))
 
 
-def test_not_ported_options_raise(tiny):
-    """Frame sharding (axis_name) is the one option still to port; the
-    chunked layout and the jacfwd oracle are ported
+def test_not_ported_options_raise(tiny, tmp_path):
+    """Every option is ported: frame sharding (``axis_name``) over a group
+    of one process equals no sharding, bit for bit (tests/test_torch_parallel.py
+    runs two ranks); the chunked layout and the jacfwd oracle are ported
     (tests/test_torch_lm_chunked.py) and an unknown Jacobian mode raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.compute_cost(*_t(tiny), tlm.LMOptions(), axis_name="frames")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(), axis_name="frames")
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        opts = tlm.LMOptions(max_iters=3, damping_schedule="nielsen")
+        assert torch.equal(tlm.compute_cost(*_t(tiny), opts, axis_name=group),
+                           tlm.compute_cost(*_t(tiny), opts))
+        blocks = tlm.build_normal_blocks(*_t(tiny), opts, axis_name=group)
+        for a, b in zip(blocks, tlm.build_normal_blocks(*_t(tiny), opts)):
+            assert torch.equal(a, b)
+        for a, b in zip(tlm.schur_solve(blocks, 1e-2, axis_name=group, opts=opts),
+                        tlm.schur_solve(blocks, 1e-2, opts=opts)):
+            assert torch.equal(a, b)
+        cam_g, poses_g, info_g = tlm.lm_solve(*_t(tiny), opts, axis_name=group)
+        cam, poses, info = tlm.lm_solve(*_t(tiny), opts)
+        assert torch.equal(cam_g, cam) and torch.equal(poses_g, poses)
+        assert torch.equal(info_g.pop("history"), info.pop("history")) and info_g == info
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="jacobian"):
         tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(jacobian="jvp"))
     assert tlm.build_normal_blocks(*_t(tiny), tlm.LMOptions(frame_chunk=4)).W.ndim == 5
