@@ -60,9 +60,13 @@ line each:
    Gauss-Newton is chaotic (``pose_unstable``: its pose moves when the
    detections are scaled by 1 + 1e-15) and what such poses feed, those
    extrinsics within 2e-3 rad and 10 mm; the poses equal at the median
-   frame; the bench problem's cost at the port's start within 1.5e-3 of
-   the cost at JAX's; wall median of 5 calls after a warm-up, with each
-   stage's share;
+   frame; the bench problem's cost at the port's start within 1e-6 of the
+   cost at JAX's over the frames no moved camera nor unstable pose reaches;
+   wall median of 5 calls after a warm-up, with each stage's share. Then
+   the same ``calibrate`` once more with its intrinsics solved camera by
+   camera (``get_intrinsics``, the route JAX's start was made on) and held
+   to every gate above and to the cost over all frames within 1.5e-3; the
+   batched route's cost over all frames is printed beside it;
 11. ``bundle_adjust`` with default options (the f32 recipe on CUDA, both
    kernels, the f64 polish on the card, pose repair on). Every call: RMSE <
    0.43 px, its f64 cost on its frames at most (1 + 1e-5) x the cost there
@@ -185,7 +189,29 @@ line each:
    logged as skipped; (c) at two ranks, each held to ``triangulate`` in its
    process; (d) ``distributed_calibration_detection`` on two of phase 20's
    videos (their first 128 frames, one per rank, the corner kernel on each;
-   the HDF5 cache left out), bit-equal to both detected in one process.
+   the HDF5 cache left out), bit-equal to both detected in one process;
+22. the camera-batched intrinsics stage (``intrinsics_phase``) on a 64 x
+   2,000-frame rig (BASELINE.json config 5's cameras, config 3's frames,
+   ``make_synthetic_rig(64, 2000, seed=11)``): (a) ``get_intrinsics_batch``
+   at 100 samples per camera, a warm-up and the median of 5 calls: the
+   lockstep iterations and each lane's ``n_iters`` / ``nfev`` (min, median,
+   max) of each batched solve, the cameras the basin guard flags, the LM's
+   host reads (gate: one per lockstep try, as the solves' histories count
+   them) and, under ``torch.cuda.set_sync_debug_mode``, every synchronising
+   call of one call, and the device's busy share under the profiler; (b)
+   the per-camera loop of ``get_intrinsics`` once, timed (gates: every
+   camera's kept solve's final cost within 1e-7 relative of (a)'s; every
+   camera's K within 1e-7 relative and distortion within 1e-6 of (a)'s, but
+   for an unstable camera, whose own per-camera solve moves past that gate
+   when its detections are scaled by 1 +- 1e-15, and whose K is held within
+   10 times that move instead; these are listed); (c) ``calibrate`` on the
+   rig (the batched route), the median of 3 calls with its stage times
+   (gates: intrinsics before the repair stage equal to (a)'s, the cameras
+   the repair refits listed, a tree over all 64 cameras, finite extrinsics,
+   each camera's rotation and translation relative to camera 0 within
+   CAL_ROT_RAD / CAL_TRANS_MM of the rig's own, and the unstable cameras of
+   (b) and those below them in the tree within CAL_UNSTABLE_ROT_RAD /
+   CAL_UNSTABLE_TRANS_MM).
 
 Then one line naming the host packages this machine has (h5py, yaml,
 pandas, cv2, libavformat; it gates nothing),
@@ -222,6 +248,11 @@ N_SAMPLES_FOR_INTRINSICS = 50
 # SAME_ABS: an extrinsic, a pose "equal to JAX's" (rad, mm; see start_gates).
 INTRINSICS_RTOL, EXT_ROT_RAD, EXT_TRANS_MM, SAME_ABS, X0_COST_RTOL = (
     1e-6, 2e-3, 10.0, 1e-6, 1.5e-3)
+# The bench cost at the start over the frames no unstable pose or moved
+# camera reaches (measured <= 7e-11 on the CPU, either intrinsics route).
+# Over all frames the cost moves with the chaotic poses, so X0_COST_RTOL
+# holds the route JAX's start was made on, intrinsics camera by camera.
+X0_STABLE_COST_RTOL = 1e-6
 BA_COST_RTOL, BA_RMSE_PX, SELECT_MARGIN = 1e-5, 0.43, 0.01  # phase 11's gates
 CHUNK = 256  # phase 11's frame_chunk
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -438,15 +469,17 @@ def ptxas_of(log, kernel):
     raise AssertionError(f"no ptxas report for {kernel}:\n{log}")
 
 
-def profiled(torch, fn, what):
-    """(fn(), the profiler) of one run of fn under torch.profiler (CPU and
-    CUDA), synchronised before the session stops. A session in which the
-    profiler recorded no device work at all lost its trace, not the work:
-    it is reported and fn is run again, in PROFILE_TRIES sessions at most."""
+def profiled(torch, fn, what, cpu=True):
+    """(fn(), the profiler) of one run of fn under torch.profiler (CPU, unless
+    ``cpu`` is false, and CUDA), synchronised before the session stops. A
+    session in which the profiler recorded no device work at all lost its
+    trace, not the work: it is reported and fn is run again, in
+    PROFILE_TRIES sessions at most."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for k in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             out = fn()
             torch.cuda.synchronize()
         if any(e.device_type == torch.autograd.DeviceType.CUDA and not is_annotation(e)
@@ -719,7 +752,7 @@ def unstable_cameras(tree, unstable):
     return out
 
 
-def start_gates(torch, dev, rig, cal, ref, x0):
+def start_gates(torch, dev, rig, cal, ref, x0, cost_rtol=X0_COST_RTOL):
     """Phase 10's gates on ``calibrate``'s outputs against the JAX package's
     (``ref``: data/bench_ba_ref.npz, ``x0``: data/bench_x0.npz), the same on
     the card and in the CPU test. Returns what they measured.
@@ -734,7 +767,9 @@ def start_gates(torch, dev, rig, cal, ref, x0):
     EXT_TRANS_MM; the bench frames' poses equal (SAME_ABS) but for frames
     seen by a camera whose extrinsics moved or holding an unstable
     camera-frame, and equal at the median frame; the bench problem's cost
-    at the port's start within X0_COST_RTOL of the cost at JAX's."""
+    at the port's start within X0_STABLE_COST_RTOL of the cost at JAX's over
+    the frames no moved camera nor unstable pose reaches, and within
+    ``cost_rtol`` over all frames (measured, not held, where it is None)."""
     from multicam_calibration_tpu_torch.models import lm_core
     from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
 
@@ -766,19 +801,31 @@ def start_gates(torch, dev, rig, cal, ref, x0):
     as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
     problem = (as_t(np.nan_to_num(obs_np)), as_t(~np.isnan(obs_np).any(-1)),
                as_t(rig.calib_objpoints))
-    cost_at = lambda cam, p: float(lm_core.compute_cost(  # noqa: E731
-        as_t(cam), as_t(p), *problem, lm_core.LMOptions()))
-    c_port, c_jax = cost_at(cam0, np.nan_to_num(poses[uf])), cost_at(jcam, x0["poses0"])
-    check(abs(c_port - c_jax) <= X0_COST_RTOL * c_jax,
+    def cost_at(cam, p, frames):
+        m = problem[1] & as_t(frames)[None, :, None]
+        return float(lm_core.compute_cost(as_t(cam), as_t(p), problem[0], m, problem[2],
+                                          lm_core.LMOptions()))
+
+    port, jax_x0 = (cam0, np.nan_to_num(poses[uf])), (jcam, x0["poses0"])
+    s_port, s_jax = cost_at(*port, ~explained), cost_at(*jax_x0, ~explained)
+    check(abs(s_port - s_jax) <= X0_STABLE_COST_RTOL * s_jax,
+          f"cost at the port's start {s_port} vs JAX's {s_jax} over the frames no moved "
+          "camera nor unstable pose reaches")
+    every = np.ones(len(uf), bool)
+    c_port, c_jax = cost_at(*port, every), cost_at(*jax_x0, every)
+    check(cost_rtol is None or abs(c_port - c_jax) <= cost_rtol * c_jax,
           f"cost at the port's start {c_port} vs JAX's {c_jax}")
     return dict(intr_rel=intr_rel, rot=rot, trans=trans, moved=moved.tolist(),
                 allowed=sorted(allowed), pose_err=pose_err, differ=int(differ.sum()),
-                explained=int(explained.sum()), frames=len(uf), c_port=c_port, c_jax=c_jax)
+                explained=int(explained.sum()), frames=len(uf), c_port=c_port, c_jax=c_jax,
+                s_port=s_port, s_jax=s_jax)
 
 
 def calibrate_phase(torch, dev):
-    """Phase 10: the port's calibrate on the bench rig against JAX's."""
+    """Phase 10: the port's calibrate on the bench rig against JAX's, on its
+    batched route and with the intrinsics solved camera by camera."""
     import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.models import initialize
     from multicam_calibration_tpu_torch.utils.metrics import metrics
 
     ref = np.load(os.path.join(DATA, "bench_ba_ref.npz"))
@@ -791,7 +838,19 @@ def calibrate_phase(torch, dev):
     metrics.stage_times.clear()
     walls = [timed(torch, call)[1] for _ in range(5)]
     stages = stage_text(metrics.stage_times, len(walls))
-    g = start_gates(torch, dev, rig, out, ref, x0)
+    g = start_gates(torch, dev, rig, out, ref, x0, cost_rtol=None)
+    # The same calibrate with get_intrinsics camera by camera in place of the
+    # lockstep batch: JAX's start (data/bench_x0.npz) was made on that route.
+    batch = initialize.get_intrinsics_batch
+    initialize.get_intrinsics_batch = lambda uvs, objp, sizes, n_samples, device: [
+        initialize.get_intrinsics(uvs[c], objp, sizes[c], n_samples=n_samples, device=device)
+        for c in range(len(uvs))]
+    try:
+        loop_out, loop_wall = timed(torch, call)
+    finally:
+        initialize.get_intrinsics_batch = batch
+    gl = start_gates(torch, dev, rig, loop_out, ref, x0)
+    rel = lambda a, b: f"{(a - b) / b:+.2e}"  # noqa: E731
     pe = g["pose_err"]
     log("10 calibrate", f"{RIG['n_cameras']} x {RIG['n_frames']} x {rig.calib_objpoints.shape[0]}, "
         f"n_samples_for_intrinsics {N_SAMPLES_FOR_INTRINSICS}: tree {out[3]} as JAX; intrinsics "
@@ -801,9 +860,19 @@ def calibrate_phase(torch, dev):
         f"{g['frames']} bench frames: {g['differ']} differ (all among the {g['explained']} seen by "
         f"a moved camera or holding an unstable pose), median max|diff| {np.median(pe):.3e}, 90th "
         f"percentile {np.percentile(pe, 90):.3e}, max {pe.max():.3e}; bench cost at the start "
-        f"{g['c_port']:.4f} vs JAX's {g['c_jax']:.4f} (rel "
-        f"{(g['c_port'] - g['c_jax']) / g['c_jax']:+.2e}); wall " + walls_text(walls)
+        f"over the {g['frames'] - g['explained']} frames no moved camera nor unstable pose "
+        f"reaches {g['s_port']:.4f} vs JAX's {g['s_jax']:.4f} (rel {rel(g['s_port'], g['s_jax'])}; "
+        f"gate {X0_STABLE_COST_RTOL:g}), over all frames {g['c_port']:.4f} vs {g['c_jax']:.4f} "
+        f"(rel {rel(g['c_port'], g['c_jax'])}; not held on this route); wall " + walls_text(walls)
         + f", warm-up {warm:.4f} s; stages per call: {stages}")
+    log("10 calibrate, intrinsics per camera", f"wall {loop_wall:.4f} s; intrinsics max rel "
+        f"diff {gl['intr_rel']:.3e}, extrinsics {gl['rot']:.3e} rad, {gl['trans']:.3e} mm, "
+        f"cameras off JAX's {gl['moved']}; poses: {gl['differ']} differ (of the "
+        f"{gl['explained']} allowed), max {gl['pose_err'].max():.3e}; bench cost at the start "
+        f"over the {gl['frames'] - gl['explained']} stable frames rel "
+        f"{rel(gl['s_port'], gl['s_jax'])} (gate {X0_STABLE_COST_RTOL:g}), over all frames "
+        f"{gl['c_port']:.4f} vs JAX's {gl['c_jax']:.4f} (rel {rel(gl['c_port'], gl['c_jax'])}; "
+        f"gate {X0_COST_RTOL:g})")
     return rig, out
 
 
@@ -2669,6 +2738,282 @@ def sharded_phase(torch, dev, bench_rig, videos):
     log("21 phase", f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 22: the camera-batched intrinsics stage. BASELINE.json config 5's 64
+# cameras at config 3's 2,000 frames: config 5's 20,000 frames are cut to
+# 2,000, because the intrinsics sample only INTR_SAMPLES frames per camera
+# and phase 21a already runs 20,000 (the rest feeds calibrate's poses,
+# extrinsics and consensus).
+INTR_RIG = dict(n_cameras=64, n_frames=2000, noise_px=NOISE_PX, dropout=0.25, seed=11)
+INTR_SAMPLES = 100  # get_intrinsics_batch's default, as the JAX package's
+INTR_TIMED, CAL_TIMED = 5, 3
+INTR_K_RTOL, INTR_DIST_ATOL = 1e-7, 1e-6  # tests/test_torch_initialize.py
+# The final cost of the solve each camera keeps, batched vs loop, every
+# camera (CPU rehearsal: <= 3.3e-9, camera 32; the others <= 4e-15).
+INTR_COST_RTOL = 1e-7
+# The scaling of a camera's detections that tells an unstable intrinsics
+# solve (phase 10's test of JAX's planar poses), and an unstable camera's K,
+# batched vs loop, within INTR_UNSTABLE_FACTOR times that move of its own.
+INTR_PERTURB, INTR_UNSTABLE_FACTOR = 1e-15, 10.0
+# calibrate's start against the rig's truth, each camera relative to camera 0,
+# over the cameras outside unstable_cameras of (b)'s unstable ones: twice the
+# largest of a CPU rehearsal of (c) (0.0652 rad, 59.32 mm, both camera 52);
+# over those cameras, twice the rehearsal's camera 32 (0.1166 rad, 798.76 mm).
+CAL_ROT_RAD, CAL_TRANS_MM = 0.13, 120.0
+CAL_UNSTABLE_ROT_RAD, CAL_UNSTABLE_TRANS_MM = 0.24, 1600.0
+
+
+def count_syncs(torch, fn):
+    """(fn(), the synchronising CUDA calls fn made), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def intrinsics_rel(a, b):
+    """(max relative difference of K, max absolute difference of the
+    distortion) between two (K, dist) pairs."""
+    return (float(np.max(np.abs(a[0] - b[0]) / np.abs(b[0]).clip(min=1e-300))),
+            float(np.max(np.abs(a[1] - b[1]))))
+
+
+def kept_cost(K, solves):
+    """The final cost of the solve whose (fx, fy, cx, cy) a camera kept, from
+    its solves' ((fx, fy, cx, cy), final cost) pairs."""
+    fc = K[[0, 1, 0, 1], [0, 1, 2, 2]]
+    costs = [float(cost) for cam, cost in solves
+             if np.array_equal(cam.detach().cpu().numpy().reshape(-1)[:4], fc)]
+    check(bool(costs), f"no solve returned the kept intrinsics {fc}")
+    return costs[0]
+
+
+def lockstep_tries(info):
+    """The tries of a lockstep lane solve: per iteration the most any lane
+    took (at least 1), from the lanes' histories."""
+    n = int(info["n_iters"].max())
+    return int(info["history"][:, :n, 4].max(0).values.clamp(min=1).sum())
+
+
+def lane_text(info):
+    """A lane solve: lockstep iterations, per-lane n_iters / nfev (min,
+    median, max), converged lanes and host reads."""
+    n, f = info["n_iters"].cpu().numpy(), info["nfev"].cpu().numpy()
+    mmm = lambda a: f"{a.min()} / {np.median(a):g} / {a.max()}"  # noqa: E731
+    return (f"{int(n.max())} lockstep iterations, {lockstep_tries(info)} tries; per lane "
+            f"n_iters {mmm(n)}, nfev {mmm(f)} (min / median / max), converged "
+            f"{int(info['converged'].sum())} of {len(n)}; host reads {info['host_reads']}")
+
+
+def intrinsics_phase(torch, dev):
+    """Phase 22: get_intrinsics_batch (one lockstep LM over the cameras)
+    against the per-camera loop, and calibrate on its batched route, at 64
+    cameras x 2,000 frames."""
+    import multicam_calibration_tpu_torch as mct
+    from multicam_calibration_tpu_torch.models import initialize
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    rig, t_rig = timed(torch, lambda: mct.make_synthetic_rig(**INTR_RIG))
+    C = INTR_RIG["n_cameras"]
+    full = (~np.isnan(rig.all_calib_uvs).any((-1, -2))).sum(1)
+    args = (rig.all_calib_uvs, rig.calib_objpoints, rig.img_sizes)
+    solves, flags = [], []
+    real = (initialize._lm_solve_lanes, initialize._basin_guard)
+
+    def lanes(*a, **kw):
+        out = real[0](*a, **kw)
+        solves.append((out[0], out[2]))
+        return out
+
+    def guard(*a):
+        flags.append(real[1](*a))
+        return flags[-1]
+
+    def batch():
+        solves.clear()
+        flags.clear()
+        return initialize.get_intrinsics_batch(*args, n_samples=INTR_SAMPLES, device=dev)
+
+    initialize._lm_solve_lanes, initialize._basin_guard = lanes, guard
+    try:
+        intr, warm = timed(torch, batch)
+        walls = []
+        for _ in range(INTR_TIMED):
+            again, wall = timed(torch, batch)
+            walls.append(wall)
+            check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                      for a, b in zip(again, intr)), "get_intrinsics_batch is not deterministic")
+        batch_solves, flagged = list(solves), flags[-1]
+        infos = [info for _, info in batch_solves]
+        # Device activity only: a call's CPU-side ops number ~10x its kernels.
+        (_, busy_wall), prof = profiled(torch, lambda: timed(torch, batch), "22a intrinsics",
+                                        cpu=False)
+        _, syncs = count_syncs(torch, batch)
+    finally:
+        initialize._lm_solve_lanes, initialize._basin_guard = real
+    check(len(infos) == 1 + bool(flagged.any()), f"{len(infos)} lane solves, "
+          f"{int(flagged.sum())} flagged cameras")
+    for info in infos:
+        check(info["host_reads"] == lockstep_tries(info), f"host reads {info['host_reads']}, "
+              f"lockstep tries {lockstep_tries(info)}")
+        check(info["host_reads"] < int(info["nfev"].sum()) - C,
+              "the lane solve reads as often as the cameras try")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not is_annotation(e)]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    reads = sum(info["host_reads"] for info in infos)
+    log("22a intrinsics batch", f"{C} cameras x {INTR_RIG['n_frames']} frames (rig made in "
+        f"{t_rig:.2f} s; {full.min()}-{full.max()} fully detected frames per camera), "
+        f"{INTR_SAMPLES} samples per camera: wall " + walls_text(walls)
+        + f", warm-up {warm:.4f} s; {int(flagged.sum())} cameras flagged by the basin guard "
+        f"{np.nonzero(flagged)[0].tolist()}; " + "; ".join(
+            f"solve {k + 1}: " + lane_text(info) for k, info in enumerate(infos))
+        + f"; host reads per call {reads} (one per lockstep try), synchronising calls per call "
+        f"{syncs} (sync debug mode); profiled call {busy_wall:.4f} s, device busy {busy:.1f} ms "
+        f"({busy / (1e3 * busy_wall):.1%}), {len(events)} device ops; "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (b) the per-camera loop, once, with the (fx, fy, cx, cy) and final cost
+    # of every solve it makes.
+    loop_solves = []
+    real_solve = initialize.lm_solve
+
+    def solve(*a, **kw):
+        out = real_solve(*a, **kw)
+        loop_solves[-1].append((out[0][0, :4], out[2]["final_cost"]))
+        return out
+
+    def per_camera(scale=1.0, cameras=range(C)):
+        out = []
+        for c in cameras:
+            loop_solves.append([])
+            out.append(initialize.get_intrinsics(
+                rig.all_calib_uvs[c] * scale, rig.calib_objpoints, rig.img_sizes[c],
+                n_samples=INTR_SAMPLES, device=dev))
+        return out
+
+    batch_costs = [kept_cost(intr[c][0], [(cam[c, 0, :4], info["final_cost"][c])
+                                          for cam, info in batch_solves]) for c in range(C)]
+    unconverged = ~torch.stack([info["converged"] for info in infos]).all(0).cpu().numpy()
+    initialize.lm_solve = solve
+    try:
+        loop, loop_wall = timed(torch, per_camera)
+        loop_costs = [kept_cost(loop[c][0], loop_solves[c]) for c in range(C)]
+        _, loop_syncs = count_syncs(torch, lambda: per_camera(cameras=[0]))
+        k_rel = [intrinsics_rel(a, b) + (abs(cb - cl) / cl,)
+                 for a, b, cb, cl in zip(intr, loop, batch_costs, loop_costs)]
+        off = [c for c in range(C) if k_rel[c][0] > INTR_K_RTOL or k_rel[c][1] > INTR_DIST_ATOL
+               or k_rel[c][2] > INTR_COST_RTOL]
+        # A camera off a gate must be one whose own solve is unstable: its K
+        # moves by more than the gate when its detections are scaled by
+        # 1 +- 1e-15. Tried on those and on every camera with a lane that ran
+        # unconverged. Its own moves (K, distortion, kept cost) bound it.
+        moved = {}
+        for c in sorted(set(off) | set(np.nonzero(unconverged)[0].tolist())):
+            runs = [(per_camera(s, [c])[0], loop_solves[-1])
+                    for s in (1 + INTR_PERTURB, 1 - INTR_PERTURB)]
+            moved[c] = np.max([intrinsics_rel(loop[c], again)
+                               + (abs(kept_cost(again[0], solved) - loop_costs[c]) / loop_costs[c],)
+                               for again, solved in runs], axis=0)
+    finally:
+        initialize.lm_solve = real_solve
+    unstable = [c for c, m in moved.items() if m[0] > INTR_K_RTOL]
+    check(set(off) <= set(unstable),
+          "batched vs per-camera off the gates on stable cameras: " + ", ".join(
+              f"camera {c}: K rel {k_rel[c][0]:.3e}, distortion {k_rel[c][1]:.3e}, kept cost "
+              f"{k_rel[c][2]:.3e}" for c in off if c not in unstable))
+    wild = [c for c in unstable if any(k_rel[c][k] > max(tol, INTR_UNSTABLE_FACTOR * moved[c][k])
+                                       for k, tol in enumerate((INTR_K_RTOL, INTR_DIST_ATOL,
+                                                                INTR_COST_RTOL)))]
+    check(not wild, "unstable cameras off their bounds: " + ", ".join(
+        f"camera {c}: K, distortion, kept cost {k_rel[c]} against {INTR_UNSTABLE_FACTOR:g} x "
+        f"own moves {moved[c].tolist()}" for c in wild))
+    stable = [c for c in range(C) if c not in unstable]
+    log("22b intrinsics loop", f"get_intrinsics camera by camera: {loop_wall:.4f} s "
+        f"({loop_wall / statistics.median(walls):.1f} x the batched median); synchronising calls "
+        f"of camera 0's call {loop_syncs}; batched vs loop on the {len(stable)} stable cameras: "
+        f"K max rel diff {max(k_rel[c][0] for c in stable):.3e} (gate {INTR_K_RTOL:g}), "
+        f"distortion max abs diff {max(k_rel[c][1] for c in stable):.3e} (gate "
+        f"{INTR_DIST_ATOL:g}), final cost of the kept solve max rel diff "
+        f"{max(k_rel[c][2] for c in stable):.3e} (gate {INTR_COST_RTOL:g}); unstable cameras "
+        f"(their own K moves past the gate when the detections are scaled by 1 +- "
+        f"{INTR_PERTURB:g}; each difference held within {INTR_UNSTABLE_FACTOR:g} x the own move): "
+        + (", ".join(
+            f"{c} (batched vs loop: K {k_rel[c][0]:.3e}, distortion {k_rel[c][1]:.3e}, kept cost "
+            f"{batch_costs[c]:.6f} vs {loop_costs[c]:.6f}, rel {k_rel[c][2]:.3e}; own moves "
+            f"{moved[c][0]:.3e}, {moved[c][1]:.3e}, {moved[c][2]:.3e}; ratios "
+            + ", ".join(f"{k_rel[c][k] / max(moved[c][k], 1e-300):.2f}" for k in range(3))
+            + f"; fx {intr[c][0][0, 0]:.2f} vs the rig's {rig.all_intrinsics[c][0][0, 0]:.2f})"
+            for c in unstable) or "none")
+        + "; own K moves of the cameras tried: " + ", ".join(
+            f"{c} {m[0]:.3e}" for c, m in moved.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (c) calibrate on the batched route.
+    call = lambda: mct.calibrate(  # noqa: E731
+        rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints, verbose=False,
+        n_samples_for_intrinsics=INTR_SAMPLES, device=dev)
+    before_repair, repaired = [], []
+    real_repair = initialize._repair_bad_intrinsics
+
+    def repair(*a):
+        before_repair[:] = [(K.copy(), d.copy()) for K, d in a[3]]
+        changed = real_repair(*a)
+        repaired[:] = [c for c, (K, d) in enumerate(a[3])
+                       if not (np.array_equal(K, before_repair[c][0])
+                               and np.array_equal(d, before_repair[c][1]))]
+        return changed
+
+    metrics.stage_times.clear()
+    cal_walls, out = [], None
+    initialize._repair_bad_intrinsics = repair
+    try:
+        for _ in range(CAL_TIMED):
+            out, wall = timed(torch, call)
+            cal_walls.append(wall)
+    finally:
+        initialize._repair_bad_intrinsics = real_repair
+    stages = stage_text(metrics.stage_times, CAL_TIMED)
+    ext, cal_intr, _, tree = out
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(before_repair, intr)), "calibrate's intrinsics differ from (a)'s")
+    check(sorted([0] + [child for _, child in tree]) == list(range(C)),
+          f"the spanning tree does not span the {C} cameras: {tree}")
+    check(bool(np.isfinite(ext).all()), "non-finite extrinsics")
+    rot, trans = relative_pose_errors(ext, rig.all_extrinsics)
+    exempt = sorted(unstable_cameras(tree, np.isin(np.arange(C), unstable)[:, None]))
+    held = [c for c in range(C) if c not in exempt]
+    worst = (max(held, key=lambda c: rot[c]), max(held, key=lambda c: trans[c]))
+    log("22c calibrate", f"{C} x {INTR_RIG['n_frames']}, batched route: wall "
+        + walls_text(cal_walls) + f"; stages per call: {stages}; intrinsics equal (a)'s, "
+        f"cameras the repair stage refit {repaired} (fx " + ", ".join(
+            f"{intr[c][0][0, 0]:.2f} -> {cal_intr[c][0][0, 0]:.2f}" for c in repaired)
+        + f"); tree over {C} cameras; relative to camera 0 against the rig, "
+        f"over the {len(held)} cameras held: rotation max {rot[worst[0]]:.4e} rad (camera "
+        f"{worst[0]}), median {np.median([rot[c] for c in held]):.4e}; translation max "
+        f"{trans[worst[1]]:.4f} mm (camera {worst[1]}), median "
+        f"{np.median([trans[c] for c in held]):.4f} mm (gates {CAL_ROT_RAD:g} rad, "
+        f"{CAL_TRANS_MM:g} mm); an unstable camera or below one in the tree (gates "
+        f"{CAL_UNSTABLE_ROT_RAD:g} rad, {CAL_UNSTABLE_TRANS_MM:g} mm): "
+        + (", ".join(f"{c} ({rot[c]:.4e} rad, {trans[c]:.4f} mm)" for c in exempt) or "none"))
+    check(rot[worst[0]] <= CAL_ROT_RAD and trans[worst[1]] <= CAL_TRANS_MM,
+          f"calibrate's extrinsics off the rig's by {rot[worst[0]]:.3e} rad / "
+          f"{trans[worst[1]]:.3f} mm")
+    far = [c for c in exempt if not (rot[c] <= CAL_UNSTABLE_ROT_RAD
+                                     and trans[c] <= CAL_UNSTABLE_TRANS_MM)]
+    check(not far, "calibrate's extrinsics off the rig's on unstable cameras: " + ", ".join(
+        f"camera {c}: {rot[c]:.3e} rad / {trans[c]:.3f} mm" for c in far))
+    log("22 phase", f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def host_packages():
     """Which host packages the video and I/O modules can use here:
     h5py, yaml, pandas and cv2 by import, libavformat by its library."""
@@ -2888,6 +3233,7 @@ def main():
         sharded_phase(torch, dev, bench_rig, videos)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    intrinsics_phase(torch, dev)
     log("host packages", host_packages())
 
     print(json.dumps({"kernels": [

@@ -7,6 +7,11 @@ PyTorch, with the JAX names:
   the absolute conic -> K) followed by a single-camera LM refine of
   (fx, fy, cx, cy, k1, k2) + board poses with the Schur LM engine
   (extrinsics frozen at identity), and a fixed-principal-point basin guard.
+- ``get_intrinsics_batch`` — the same for every camera at once, as the JAX
+  package's: one camera-vmapped Zhang init (``_batched_zhang_init``) and
+  one lockstep LM over the cameras (``_batched_intrinsics_refine`` on
+  ``lm_core._lm_solve_lanes``), a second one from the fixed-principal-point
+  starts when the guard flags any camera.
 - ``estimate_pose`` — batched planar-homography pose extraction, a
   Gauss-Newton polish of every frame at once (``torch.func.jacfwd`` rows),
   and the planar twin-pose check.
@@ -18,11 +23,11 @@ PyTorch, with the JAX names:
 
 Entry points take numpy (or tensors) and run on ``device``: None means the
 CUDA device (raising without one) unless a tensor argument brings its own;
-pass ``device="cpu"`` for the CPU. Everything runs in f64. The single-camera
-intrinsics solves use ``LMOptions(max_iters=60, ftol=1e-6, loss="linear")``
-in f64, which is not the kernels' all-f32 recipe: they take lm_core's plain
-torch route on every device, as the JAX package's routing does
-(lm_core.py:390-430).
+pass ``device="cpu"`` for the CPU. Everything runs in f64. The intrinsics
+solves, per camera and batched, use ``LMOptions(max_iters=60, ftol=1e-6,
+loss="linear")`` in f64, which is not the kernels' all-f32 recipe: they take
+lm_core's plain torch route on every device, as the JAX package's routing
+does (lm_core.py:390-430).
 
 ``torch.linalg.svd``/``eigh`` raise on non-finite input where JAX returns
 NaN; the functions below that factor matrices from detections hand them
@@ -44,7 +49,14 @@ from ..ops.transforms import (
     get_transformation_vector,
     se3_inverse,
 )
-from .lm_core import LMOptions, _cholesky, _predict, lm_solve, project_board_points
+from .lm_core import (
+    LMOptions,
+    _cholesky,
+    _lm_solve_lanes,
+    _predict,
+    lm_solve,
+    project_board_points,
+)
 
 __all__ = [
     "estimate_board_homographies",
@@ -63,6 +75,11 @@ __all__ = [
 ]
 
 _F64 = torch.float64
+# Camera-frames per batched pose call: cuSOLVER's batched eigh (the
+# homography fit) refuses 32,768 matrices or more on the H100 (a probe of
+# 6x6 and 9x9 batches: 24,000 pass), and a 64-camera rig of 2,000 frames is
+# 128,000. The largest power of two below that limit.
+POSE_BATCH = 16384
 
 
 def _host(x):
@@ -161,13 +178,18 @@ def intrinsics_from_homographies_fixed_pp(Hs, valid, image_size):
     (cx, cy) and zero skew leaves X = 1/fx^2, Y = 1/fy^2, two linear
     constraints per homography of H' = T(-center) @ H, solved as a 2x2
     normal system by Cramer's rule with a 1e-12 ridge. The alternative LM
-    start of :func:`get_intrinsics`.
+    start of :func:`get_intrinsics`. ``image_size`` (w, h) may be a tensor,
+    so the function runs under ``torch.vmap`` (:func:`_batched_zhang_init`).
     """
-    w, h = (float(v) for v in _host(image_size).reshape(-1)[:2])
-    cx = torch.tensor(w, dtype=Hs.dtype, device=Hs.device) / 2.0
-    cy = torch.tensor(h, dtype=Hs.dtype, device=Hs.device) / 2.0
-    T = torch.eye(3, dtype=Hs.dtype, device=Hs.device)
-    T[0, 2], T[1, 2] = -cx, -cy
+    size = image_size if isinstance(image_size, torch.Tensor) else _t(
+        np.asarray(image_size, np.float64).reshape(-1)[:2], Hs.device)
+    cx, cy = size[0].to(Hs.dtype) / 2.0, size[1].to(Hs.dtype) / 2.0
+    zero, one = torch.zeros_like(cx), torch.ones_like(cx)
+    T = torch.stack([
+        torch.stack([one, zero, -cx]),
+        torch.stack([zero, one, -cy]),
+        torch.stack([zero, zero, one]),
+    ])
     Hc = torch.einsum("ij,fjk->fik", T, Hs)
     a1, a2 = Hc[:, 0, 0], Hc[:, 0, 1]
     b1, b2 = Hc[:, 1, 0], Hc[:, 1, 1]
@@ -190,7 +212,6 @@ def intrinsics_from_homographies_fixed_pp(Hs, valid, image_size):
     ]) / det
     fx = 1.0 / torch.sqrt(torch.clamp(XY[0], min=1e-12))
     fy = 1.0 / torch.sqrt(torch.clamp(XY[1], min=1e-12))
-    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
     return torch.stack([
         torch.stack([fx, zero, cx]),
         torch.stack([zero, fy, cy]),
@@ -335,10 +356,14 @@ def _batched_estimate_pose(calib_uvs, K, dist, objpoints):
     fully detected. ``torch.vmap`` of :func:`_estimate_pose_impl` over the
     camera axis (the JAX package's ``jit(vmap(_estimate_pose_impl))``), so
     every step runs batched over all cameras instead of once per camera; it
-    equals the per-camera loop."""
-    return torch.vmap(_estimate_pose_impl, in_dims=(0, 0, 0, None))(
-        calib_uvs, K, dist, objpoints
-    )
+    equals the per-camera loop. Frames go in slabs of at most
+    ``POSE_BATCH`` camera-frames (each frame's pose is its own)."""
+    pose = torch.vmap(_estimate_pose_impl, in_dims=(0, 0, 0, None))
+    step = max(1, POSE_BATCH // calib_uvs.shape[0])
+    if calib_uvs.shape[1] <= step:
+        return pose(calib_uvs, K, dist, objpoints)
+    return torch.cat([pose(slab, K, dist, objpoints)
+                      for slab in calib_uvs.split(step, dim=1)], dim=1)
 
 
 def _pick(device, *xs):
@@ -427,7 +452,7 @@ def _intrinsics_from_sample(uvs, take, objpoints, image_size, opts):
         cam_ref, _, info = lm_solve(
             cam0, poses0, obs, point_mask, objpoints, opts, cam_free=cam_free
         )
-        return _host(cam_ref), float(info["final_cost"])
+        return _host(cam_ref), np.array([float(info["final_cost"])])
 
     cam_ref, cost = refine(K0)
 
@@ -435,30 +460,51 @@ def _intrinsics_from_sample(uvs, take, objpoints, image_size, opts):
     # disagrees with the IAC one, refine from it too and keep the better
     # field-valid solution.
     K0_pp = intrinsics_from_homographies_fixed_pp(Hs, mask_f, image_size)
-    k0, kp = _host(K0), _host(K0_pp)
-    with np.errstate(all="ignore"):
-        f_ratio = max(k0[0, 0] / kp[0, 0], kp[0, 0] / k0[0, 0])
-        pp_off = np.hypot(k0[0, 2] - kp[0, 2], k0[1, 2] - kp[1, 2]) / float(
-            np.hypot(*image_size)
-        )
-    if np.isfinite(kp[0, 0]) and (
-        not np.isfinite(k0[0, 0]) or f_ratio > 1.15 or pp_off > 0.08
-    ):
-        cam_alt, cost_alt = refine(K0_pp)
-        # Prefer by (field-valid, cost): a lower-cost solution whose radial
-        # model is not invertible over its own image field is a degenerate
-        # compensating-distortion fit, not a better basin.
-        pri_ok = np.isfinite(cost) and _intrinsics_field_valid(cam_ref[0], image_size)
-        alt_ok = np.isfinite(cost_alt) and _intrinsics_field_valid(
-            cam_alt[0], image_size
-        )
-        if alt_ok and (not pri_ok or cost_alt < cost):
-            cam_ref, cost = cam_alt, cost_alt
+    size = np.asarray(image_size, float)[None]
+    flagged = _basin_guard(_host(K0)[None], _host(K0_pp)[None], size)
+    if flagged[0]:
+        cam_ref = _keep_alt(cam_ref, cost, *refine(K0_pp), flagged, size)
+    return _intrinsics_out(cam_ref)[0]
 
-    fx, fy, cx, cy, k1, k2 = (float(cam_ref[0, i]) for i in range(6))
-    camera_matrix = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
-    dist_coefs = np.array([k1, k2, 0.0, 0.0, 0.0])
-    return camera_matrix, dist_coefs
+
+def _basin_guard(K0, K0_pp, image_sizes):
+    """Which cameras the basin guard refines from the fixed-principal-point
+    start too: numpy Zhang K0 (C, 3, 3), fixed-pp K0_pp (C, 3, 3) and image
+    sizes (C, 2) -> (C,) bool. Flagged where K0_pp's focal is finite and
+    K0's is not, or where the two disagree by more than 15% in focal or 8%
+    of the image diagonal in principal point."""
+    f0, fp = K0[:, 0, 0], K0_pp[:, 0, 0]
+    with np.errstate(all="ignore"):
+        f_ratio = np.maximum(f0 / fp, fp / f0)
+        pp_off = np.hypot(K0[:, 0, 2] - K0_pp[:, 0, 2], K0[:, 1, 2] - K0_pp[:, 1, 2]) / np.hypot(
+            image_sizes[:, 0], image_sizes[:, 1])
+    return np.isfinite(fp) & (~np.isfinite(f0) | (f_ratio > 1.15) | (pp_off > 0.08))
+
+
+def _keep_alt(cam, cost, cam_alt, cost_alt, flagged, image_sizes):
+    """The basin guard's choice between the refine from Zhang's K and the one
+    from the fixed-principal-point K, per camera: numpy (C, 12) cameras and
+    (C,) final costs of each, the (C,) guard flags and (C, 2) image sizes ->
+    (C, 12). A flagged camera keeps the alternative by (field-valid, cost):
+    when it is field-valid and the primary is not or costs more. A
+    lower-cost solution whose radial model is not invertible over its own
+    image field is a degenerate compensating-distortion fit, not a better
+    basin."""
+    def valid(cams, costs):
+        return np.array([bool(np.isfinite(costs[c]))
+                         and _intrinsics_field_valid(cams[c], image_sizes[c])
+                         for c in range(len(cams))], dtype=bool)
+
+    with np.errstate(invalid="ignore"):
+        keep = flagged & valid(cam_alt, cost_alt) & (~valid(cam, cost) | (cost_alt < cost))
+    return np.where(keep[:, None], cam_alt, cam)
+
+
+def _intrinsics_out(cam):
+    """Refined (C, 12) cameras -> a list of (camera_matrix (3, 3),
+    dist_coefs (5,)) as numpy: (fx, fy, cx, cy, k1, k2), the rest zero."""
+    return [(np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]]), np.array([k1, k2, 0.0, 0.0, 0.0]))
+            for fx, fy, cx, cy, k1, k2 in np.asarray(cam, dtype=float)[:, :6].tolist()]
 
 
 def _intrinsics_opts(lm_options):
@@ -494,6 +540,46 @@ def get_intrinsics(
     )
 
 
+@with_highest_precision
+def _batched_zhang_init(uvs_s, mask_f, objpoints, image_sizes):
+    """Homographies and both closed-form K estimates for all cameras at
+    once: ``torch.vmap`` over cameras of :func:`estimate_board_homographies`,
+    :func:`intrinsics_from_homographies` and
+    :func:`intrinsics_from_homographies_fixed_pp`. (C, S, N, 2) samples,
+    (C, S) frame mask, (C, 2) image sizes -> Hs (C, S, 3, 3), K0 (C, 3, 3),
+    K0_pp (C, 3, 3). ``_finite_frames``' stand-ins keep ``eigh`` away from
+    non-finite input inside the vmap."""
+    Hs, _ = torch.vmap(estimate_board_homographies, in_dims=(0, None, 0))(
+        uvs_s, objpoints, mask_f)
+    K0 = torch.vmap(intrinsics_from_homographies)(Hs, mask_f)
+    K0_pp = torch.vmap(intrinsics_from_homographies_fixed_pp)(Hs, mask_f, image_sizes)
+    return Hs, K0, K0_pp
+
+
+@with_highest_precision
+def _batched_intrinsics_refine(K_inits, Hs, uvs_s, mask_f, objpoints, opts):
+    """The single-camera intrinsics refine of every camera in one lockstep
+    LM (``lm_core._lm_solve_lanes``, a lane per camera; the JAX package's
+    ``vmap`` of its ``one()``): (fx, fy, cx, cy, k1, k2) and the sample's
+    board poses from K_inits (C, 3, 3) and the poses of Hs, extrinsics frozen
+    at identity, padded frames masked. Returns (cam (C, 12), final cost
+    (C,)), each camera's result that of its own solve."""
+    C = K_inits.shape[0]
+    dtype, dev = uvs_s.dtype, uvs_s.device
+    cam0 = torch.cat([
+        torch.stack([K_inits[:, 0, 0], K_inits[:, 1, 1], K_inits[:, 0, 2], K_inits[:, 1, 2]], -1),
+        torch.zeros((C, 8), dtype=dtype, device=dev),
+    ], -1)[:, None]
+    poses0 = torch.vmap(poses_from_homographies)(Hs, K_inits)
+    obs = uvs_s[:, None]
+    point_mask = mask_f[:, None, :, None].expand(obs.shape[:4])
+    cam_free = torch.cat([torch.ones(6, dtype=dtype, device=dev),
+                          torch.zeros(6, dtype=dtype, device=dev)])[None]
+    cam_ref, _, info = _lm_solve_lanes(cam0, poses0, obs, point_mask, objpoints, opts,
+                                       cam_free=cam_free)
+    return cam_ref[:, 0], info["final_cost"]
+
+
 def get_intrinsics_batch(
     all_calib_uvs,
     calib_objpoints,
@@ -503,30 +589,44 @@ def get_intrinsics_batch(
     lm_options=None,
     device=None,
 ):
-    """All cameras' intrinsics; a list of (camera_matrix, dist_coefs).
+    """All cameras' intrinsics at once; a list of (camera_matrix,
+    dist_coefs).
 
-    The JAX package vmaps the single-camera refine over cameras (a vmapped
-    while_loop holds finished lanes, so each camera gets its sequential
-    result). The port's LM is a host loop, so this runs
-    :func:`get_intrinsics`' program camera by camera, with the same
-    sampling, init, refine and basin guard. Every camera's frame count is
-    checked before any solve.
+    :func:`get_intrinsics`' semantics per camera (the same sampling rng,
+    Zhang init, LM refine and basin guard), batched over cameras as in the
+    JAX package: one :func:`_batched_zhang_init`, one lockstep refine of
+    every camera from its Zhang K (:func:`_batched_intrinsics_refine`;
+    iterations = the slowest camera's, each finished camera held), and, when
+    the basin guard flags any camera, a second one from the
+    fixed-principal-point K, kept for a flagged camera by the
+    (field-valid, cost) preference. The LM reads one pair of flags per try
+    for the whole rig. Every camera's frame count is checked before any
+    solve.
     """
     dev = _pick(device, all_calib_uvs)
     all_calib_uvs = _host(all_calib_uvs)
+    n_cameras = all_calib_uvs.shape[0]
     samples = [
         _sample_frames(all_calib_uvs[c], n_samples, seed, camera=c)
-        for c in range(all_calib_uvs.shape[0])
+        for c in range(n_cameras)
     ]
+    uvs_s = _t(np.nan_to_num(np.stack(
+        [all_calib_uvs[c, sample] for c, (sample, _) in enumerate(samples)])), dev)
+    takes = torch.as_tensor([take for _, take in samples], device=dev)
+    mask_f = torch.arange(n_samples, device=dev)[None, :] < takes[:, None]
     objpoints = _t(calib_objpoints, dev)
+    sizes_np = np.asarray(img_sizes, dtype=float)
     opts = _intrinsics_opts(lm_options)
-    return [
-        _intrinsics_from_sample(
-            _t(np.nan_to_num(all_calib_uvs[c, sample]), dev), take, objpoints,
-            tuple(float(v) for v in np.asarray(img_sizes[c], float)), opts,
-        )
-        for c, (sample, take) in enumerate(samples)
-    ]
+
+    Hs, K0, K0_pp = _batched_zhang_init(uvs_s, mask_f, objpoints, _t(sizes_np, dev))
+    cam_ref, cost = (_host(x) for x in _batched_intrinsics_refine(
+        K0, Hs, uvs_s, mask_f, objpoints, opts))
+    flagged = _basin_guard(_host(K0), _host(K0_pp), sizes_np)
+    if flagged.any():
+        cam_alt, cost_alt = (_host(x) for x in _batched_intrinsics_refine(
+            K0_pp, Hs, uvs_s, mask_f, objpoints, opts))
+        cam_ref = _keep_alt(cam_ref, cost, cam_alt, cost_alt, flagged, sizes_np)
+    return _intrinsics_out(cam_ref)
 
 
 def estimate_pairwise_camera_transform(camera1_poses, camera2_poses, device=None):

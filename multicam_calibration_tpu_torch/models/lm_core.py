@@ -740,7 +740,9 @@ def _damp(M, lam, eps):
 def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None):
     """Solve the damped normal equations via the Schur complement.
 
-    Marquardt damping (lam * diag). Returns (dcam (C,12), dpose) in the
+    Marquardt damping (lam * diag; ``lam`` a number or a 0-d tensor, so the
+    dense solve also runs under ``torch.vmap`` with a lambda per problem, as
+    ``_lm_solve_lanes`` runs it). Returns (dcam (C,12), dpose) in the
     blocks' dtype: dpose is (F,6) for dense blocks and (nc*ck, 6) for
     chunked ones (callers drop the padded rows, which are exactly 0). With
     ``opts.solve_dtype`` set the solve runs in that dtype. Under frame
@@ -755,7 +757,8 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
         if opts is not None and opts.solve_dtype
         else dtype
     )
-    lam = float(lam)
+    if not isinstance(lam, torch.Tensor):
+        lam = float(lam)
     # Summed over the shards in the blocks' dtype, then cast (the JAX engine
     # casts first): the shards' partial sums then round as the chunked
     # layout's slab sums do, so a solve sharded over k ranks takes the steps
@@ -791,7 +794,7 @@ def schur_solve(blocks: NormalBlocks, lam, axis_name=None, eps=1e-12, opts=None)
     S_cross, rhs_cross, V_invs = zip(*(reduce_slab(*slab) for slab in slabs))
     S_cross = _psum(functools.reduce(torch.add, S_cross), axis_name)
     rhs_cross = _psum(functools.reduce(torch.add, rhs_cross), axis_name)
-    S = torch.block_diag(*U_d) - S_cross.reshape(12 * C, 12 * C)
+    S = _blockdiag_embed(U_d, C) - S_cross.reshape(12 * C, 12 * C)
     rhs = (g_cam - rhs_cross).reshape(12 * C)
     dcam = _equilibrated_solve(S, rhs).reshape(C, 12)
     dpose = [back_substitute(V_inv_k, W_k, gp_k, dcam)
@@ -806,8 +809,11 @@ def _diag_embed(diags):
 
 
 def _blockdiag_embed(blocks, C):
-    """(C, 12, 12) -> (12C, 12C) block-diagonal."""
-    return torch.block_diag(*blocks[:C])
+    """(C, 12, 12) -> (12C, 12C) block-diagonal: ``torch.block_diag`` as
+    one select, so it also runs under ``torch.vmap``."""
+    eye = torch.eye(C, dtype=torch.bool, device=blocks.device)
+    out = torch.where(eye[:, None, :, None], blocks[:C, :, None, :], 0.0)
+    return out.reshape(12 * C, 12 * C)
 
 
 @with_highest_precision
@@ -956,5 +962,178 @@ def lm_solve(
         "nfev": nfev,
         "grad0": grad0,
         "history": hist,  # (max_iters, 6), rows [:n_iters] valid
+    }
+    return cam, poses, info
+
+
+@with_highest_precision
+def _lm_solve_lanes(
+    cam_params,
+    pose_params,
+    obs,
+    mask,
+    objpoints,
+    opts: LMOptions = LMOptions(),
+    cam_free=None,
+    pose_free=None,
+    axis_name=None,
+):
+    """:func:`lm_solve` on B independent problems in lockstep: the
+    counterpart of ``jax.vmap(lm_solve)``.
+
+    ``cam_params`` (B, C, 12), ``pose_params`` (B, F, 6), ``obs``
+    (B, C, F, N, 2), ``mask`` (B, C, F, N); ``objpoints`` (N, 3) and the
+    freeze masks ``cam_free`` (C, 12) / ``pose_free`` (F, 6) are shared by
+    the lanes. Every lane takes the steps :func:`lm_solve` takes on its
+    problem alone: its state (cost, lambda, gradient norms, ftol patience,
+    tries, acceptance, done, n_iters, nfev, history) is a (B,) tensor, and a
+    lane that has finished its retries or its solve keeps its state through
+    ``torch.where``, the select a vmapped ``while_loop`` applies. A lane that
+    is not trying never moves its lambda. The linearization, the Schur solve
+    and the cost run batched over the lanes (``torch.vmap`` of the plain
+    routes of :func:`build_normal_blocks`, :func:`schur_solve` and
+    :func:`compute_cost`); the retries of one outer iteration reuse its
+    blocks. The host reads one pair of flags per try for the whole batch
+    (any lane still trying, any lane still running), never a per-lane value.
+
+    A lane whose damped system is not positive definite, or that starts from
+    non-finite parameters, gets a non-finite trial cost and is rejected on
+    its own: it exhausts its tries (lambda reaches ``max_lambda``) without
+    touching the other lanes.
+
+    The dense layout only, on the plain torch route: ``block_impl`` /
+    ``cost_impl`` ``"cuda"`` (the BA kernels take one problem),
+    ``frame_chunk`` and ``axis_name`` raise. Returns (cam (B, C, 12), poses
+    (B, F, 6), info) with ``info`` as :func:`lm_solve`'s but every entry a
+    (B,) tensor (``history`` (B, max_iters, 6)), and ``host_reads``, the
+    number of reads this call made (one per lockstep try).
+    """
+    for name, value, refused in (
+        ("block_impl", opts.block_impl, opts.block_impl not in ("auto", "torch")),
+        ("cost_impl", opts.cost_impl, opts.cost_impl not in ("auto", "torch")),
+        ("frame_chunk", opts.frame_chunk, opts.frame_chunk is not None),
+        ("axis_name", axis_name, axis_name is not None),
+    ):
+        if refused:
+            raise ValueError(
+                f"_lm_solve_lanes: {name}={value!r} is not supported (the lanes run "
+                "the dense layout on the plain torch route, in one process)")
+    plain = dataclasses.replace(opts, block_impl="torch", cost_impl="torch")
+    dd = cam_params.dtype
+    f64 = torch.float64
+    B = cam_params.shape[0]
+    dev = cam_params.device
+
+    cost_fn = torch.vmap(lambda c, p, o, m: _cost(c, p, o, m, objpoints, plain, None).to(f64))
+    build = torch.vmap(lambda c, p, o, m: _build(c, p, o, m, objpoints, plain, cam_free,
+                                                 pose_free, None))
+    solve = torch.vmap(lambda blocks, lam: schur_solve(blocks, lam, opts=plain))
+
+    def per_lane(x, like):
+        """A (B,) tensor shaped to broadcast against ``like`` (B, ...)."""
+        return x.reshape(B, *([1] * (like.ndim - 1)))
+
+    def sq_sum(x):
+        return torch.sum(x**2, dim=tuple(range(1, x.ndim)))
+
+    nielsen = opts.damping_schedule == "nielsen"
+    cost0 = cost_fn(cam_params, pose_params, obs, mask)
+    cam, poses, cost = cam_params, pose_params, cost0
+    lam = torch.full((B,), float(opts.init_lambda), dtype=f64, device=dev)
+    grad_norm = torch.zeros(B, dtype=f64, device=dev)
+    grad0 = torch.full((B,), -1.0, dtype=f64, device=dev)
+    it = torch.zeros(B, dtype=torch.long, device=dev)
+    slow_steps, nfev = torch.zeros_like(it), torch.ones_like(it)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    hist = torch.zeros((B, opts.max_iters, len(HIST_FIELDS)), dtype=dd, device=dev)
+    rows = torch.arange(opts.max_iters, device=dev)
+    reads = 0
+    running = opts.max_iters > 0 and B > 0
+    while running:
+        active = ~done & (it < opts.max_iters)
+        blocks = build(cam, poses, obs, mask)
+        grad_norm = torch.where(
+            active, torch.sqrt(sq_sum(blocks.g_cam) + sq_sum(blocks.g_pose)).to(f64), grad_norm)
+        cam_n, poses_n, cost_n = cam, poses, cost
+        lam_t, lam_used = lam, lam
+        rho_used = torch.ones(B, dtype=f64, device=dev)
+        tries = torch.zeros_like(it)
+        accepted = torch.zeros_like(done)
+
+        def finish(e):
+            """The end of lm_solve's outer iteration for the lanes of mask
+            ``e``, whose retries are over; the other lanes keep their state."""
+            nonlocal cam, poses, cost, lam, slow_steps, grad0, done, it, nfev, hist
+            if nielsen:
+                relax = torch.clamp(1.0 - (2.0 * rho_used - 1.0) ** 3, opts.lambda_down, 2.0)
+            else:
+                relax = opts.lambda_down
+            lam_next = torch.clamp(torch.where(accepted, lam_used * relax, lam_t),
+                                   opts.min_lambda, opts.max_lambda)
+            rel_drop = (cost - cost_n) / torch.clamp(cost, min=1e-30)
+            easy_step = accepted & (tries == 1)
+            exhausted = ~accepted & (lam_next >= opts.max_lambda)
+            slow = torch.where(easy_step & (rel_drop < opts.ftol), slow_steps + 1, 0)
+            g0 = torch.where(grad0 < 0, grad_norm, grad0)
+            stop = exhausted | (slow >= opts.ftol_patience) | (grad_norm < opts.gtol)
+            if opts.gtol_rel > 0:
+                stop = stop | (grad_norm < opts.gtol_rel * g0)
+            step_norm = torch.sqrt(sq_sum(cam_n - cam) + sq_sum(poses_n - poses))
+            row = torch.stack([cost_n.to(dd), grad_norm.to(dd), step_norm, lam_used.to(dd),
+                               tries.to(dd), rel_drop.to(dd)], -1)
+            at = e[:, None] & (rows[None] == it[:, None])
+            hist = torch.where(at[..., None], row[:, None], hist)
+            sel = lambda new, old: torch.where(per_lane(e, old), new, old)  # noqa: E731
+            cam, poses, cost = sel(cam_n, cam), sel(poses_n, poses), sel(cost_n, cost)
+            lam, slow_steps, grad0 = sel(lam_next, lam), sel(slow, slow_steps), sel(g0, grad0)
+            done, it, nfev = sel(stop, done), sel(it + 1, it), sel(nfev + tries, nfev)
+
+        trying = active & (opts.max_tries > 0) & (lam_t < opts.max_lambda)
+        finish(active & ~trying)  # lanes that take no try this iteration
+        while True:
+            dcam, dpose = solve(blocks, lam_t)
+            cam_try, poses_try = cam + dcam, poses + dpose
+            cost_try = cost_fn(cam_try, poses_try, obs, mask)
+            ok = trying & (cost_try < cost) & torch.isfinite(cost_try)
+            if nielsen:
+                lt = lam_t.to(dd)
+                diag_u = torch.diagonal(blocks.U, dim1=-2, dim2=-1)
+                diag_v = torch.diagonal(blocks.V, dim1=-2, dim2=-1)
+                term_cam = torch.sum(dcam * (per_lane(lt, dcam) * diag_u * dcam
+                                             + blocks.g_cam), dim=(1, 2))
+                term_pose = torch.sum(dpose * (per_lane(lt, dpose) * diag_v * dpose
+                                               + blocks.g_pose), dim=(1, 2))
+                pred = 0.5 * (term_cam + term_pose).to(f64)
+                rho = (cost - cost_try) / torch.clamp(pred, min=1e-30)
+                rho_used = torch.where(trying, rho, rho_used)
+            lam_used = torch.where(trying, lam_t, lam_used)
+            cam_n = torch.where(per_lane(ok, cam_n), cam_try, cam_n)
+            poses_n = torch.where(per_lane(ok, poses_n), poses_try, poses_n)
+            cost_n = torch.where(ok, cost_try, cost_n)
+            step_up = opts.lambda_up * torch.pow(opts.lambda_escalation, tries.to(f64))
+            lam_t = torch.where(trying & ~ok, lam_t * step_up, lam_t)
+            tries = tries + trying.long()
+            accepted = accepted | ok
+            over = trying & (accepted | (tries >= opts.max_tries)
+                             | (lam_t >= opts.max_lambda))
+            trying = trying & ~over
+            finish(over)
+            flags = torch.stack([trying.any(), (~done & (it < opts.max_iters)).any()])
+            still_trying, running = flags.tolist()  # the one host read of a try
+            reads += 1
+            if not still_trying:
+                break
+
+    info = {
+        "initial_cost": cost0,
+        "final_cost": cost,
+        "n_iters": it,
+        "lambda": lam,
+        "converged": done,
+        "optimality": grad_norm,
+        "nfev": nfev,
+        "grad0": grad0,
+        "history": hist,
+        "host_reads": reads,
     }
     return cam, poses, info

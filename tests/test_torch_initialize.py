@@ -219,8 +219,8 @@ def test_get_intrinsics_matches_jax(rig):
 
 
 def test_get_intrinsics_batch_matches_jax_batched_and_sequential(rig):
-    """The port loops over cameras; JAX vmaps the LM (finished lanes held),
-    so each camera's batched result is its sequential one in both."""
+    """Both packages solve the cameras in one lockstep LM (finished lanes
+    held), so each camera's batched result is its sequential one in both."""
     args = (rig.all_calib_uvs, rig.calib_objpoints, rig.img_sizes)
     got = ti.get_intrinsics_batch(*args, n_samples=N_SAMPLES, device=CPU)
     _assert_intrinsics_close(got, ji.get_intrinsics_batch(*args, n_samples=N_SAMPLES))
