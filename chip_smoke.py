@@ -336,10 +336,11 @@ def stream_start(rig, seed):
 
 
 def is_annotation(event):
-    """A profiler range the code opened (``record_function``), which the
+    """A profiler range the code opened (a ``metrics.span``), which the
     trace also mirrors on the device timeline; not device work."""
     return bool(getattr(event, "is_user_annotation", False)) or event.name.startswith(
-        ("rolling.", "lm_solve."))
+        ("rolling.", "lm_solve.", "ba.", "calibrate.", "detect.", "detect_chessboard_batches.",
+         "estimate_pose.", "consensus_calib_poses"))
 
 
 def relative_extrinsics(ext):

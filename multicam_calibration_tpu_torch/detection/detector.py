@@ -45,11 +45,11 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..device import cuda_device, with_highest_precision
 from ..ops.corner_cuda import corner_response_fused, corner_response_peaks
 from ..ops.homography import apply_homography, fit_homography, inv3x3
+from ..utils.metrics import metrics
 from . import native_lattice
 
 __all__ = [
@@ -2061,13 +2061,13 @@ def detect_chessboard_batches(
 
     @with_highest_precision
     def dispatch(images, stream, stage):
-        with _on(stream), record_function("detect_chessboard_batches.dispatch"):
+        with _on(stream), metrics.span("detect_chessboard_batches.dispatch"):
             return opts.dispatch(images, stage), stream
 
     @with_highest_precision
     def finish(pending):
         state, stream = pending
-        with _on(stream), record_function("detect_chessboard_batches.finish"):
+        with _on(stream), metrics.span("detect_chessboard_batches.finish"):
             return opts.finish(state)
 
     # A result is made under its batch's stream and yielded outside it, so
@@ -2398,184 +2398,195 @@ def _batch_finish(
         return False
 
     # Fast-path frames first: ordered, refined and anchor-scored in stage 1.
-    out = {}
-    fast_ok = fast_ok_d.cpu().numpy()
-    fast_uv = fast_uv_d.cpu().numpy()
-    fast_sc4 = fast_sc4_d.cpu().numpy()
-    fallback = []
-    for i in range(B):
-        if not (fast_ok[i] and pick(i, fast_uv[i][None], fast_sc4[i][None], 1, out)):
-            fallback.append(i)
+    with metrics.span("detect.finish.fast"):
+        out = {}
+        fast_ok = fast_ok_d.cpu().numpy()
+        fast_uv = fast_uv_d.cpu().numpy()
+        fast_sc4 = fast_sc4_d.cpu().numpy()
+        fallback = []
+        for i in range(B):
+            if not (fast_ok[i] and pick(i, fast_uv[i][None], fast_sc4[i][None], 1, out)):
+                fallback.append(i)
 
     # Host lattice ordering for the fallback frames only.
-    hyp = np.broadcast_to(_filler, (B, NW, cols, rows, 2)).copy()
-    con = np.zeros((B, NW, cols, rows), bool)  # constructed-cell masks
-    n_hyp = np.zeros(B, np.int64)
-    xy = score = None
-    if fallback:
-        xy = xy_d.cpu().numpy()
-        score = score_d.cpu().numpy()
-        for i in fallback:
-            wins = order_grid_points(
-                xy[i], score[i], board_shape, refined=False, n_windows=NW,
-                return_masks=True,
-            )
-            for h, (uvs, mask) in enumerate(wins):
-                hyp[i, h] = np.asarray(uvs).reshape(cols, rows, 2)
-                con[i, h] = np.asarray(mask).reshape(cols, rows)
-            n_hyp[i] = len(wins)
+    with metrics.span("detect.finish.lattice"):
+        hyp = np.broadcast_to(_filler, (B, NW, cols, rows, 2)).copy()
+        con = np.zeros((B, NW, cols, rows), bool)  # constructed-cell masks
+        n_hyp = np.zeros(B, np.int64)
+        xy = score = None
+        if fallback:
+            xy = xy_d.cpu().numpy()
+            score = score_d.cpu().numpy()
+            for i in fallback:
+                wins = order_grid_points(
+                    xy[i], score[i], board_shape, refined=False, n_windows=NW,
+                    return_masks=True,
+                )
+                for h, (uvs, mask) in enumerate(wins):
+                    hyp[i, h] = np.asarray(uvs).reshape(cols, rows, 2)
+                    con[i, h] = np.asarray(mask).reshape(cols, rows)
+                n_hyp[i] = len(wins)
+
     # Lazy hypothesis evaluation: the top-ranked window first, the others
     # only for frames that reject it.
-    fb = [i for i in range(B) if n_hyp[i] > 0]
-    grids1 = {}  # frame -> (refined hyp-0 grid, scores)
-    grids2 = {}  # frame -> (refined hyp-1.. grids, scores)
-    if fb:
-        g1, s1 = score_at(np.array(fb), hyp[np.array(fb), 0])
-        retry = []
-        for j, i in enumerate(fb):
-            g1j = _settle_constructed(g1[j], hyp[i, 0], con[i, 0])
-            grids1[i] = (g1j, s1[j])
-            if (
-                not pick(i, g1j[None], s1[j][None], 1, out, con[i, 0:1])
-                and n_hyp[i] > 1
-            ):
-                retry.append(i)
-        if retry:
-            ridx = np.repeat(np.array(retry), NW - 1)
-            g2, s2 = score_at(
-                ridx, hyp[np.array(retry), 1:].reshape(-1, cols, rows, 2)
-            )
-            for j, i in enumerate(retry):
-                sl = slice(j * (NW - 1), (j + 1) * (NW - 1))
-                g2s = np.stack(
-                    [
-                        _settle_constructed(
-                            g2[sl][h], hyp[i, 1 + h], con[i, 1 + h]
-                        )
-                        for h in range(NW - 1)
-                    ]
+    with metrics.span("detect.finish.hypotheses"):
+        fb = [i for i in range(B) if n_hyp[i] > 0]
+        grids1 = {}  # frame -> (refined hyp-0 grid, scores)
+        grids2 = {}  # frame -> (refined hyp-1.. grids, scores)
+        if fb:
+            g1, s1 = score_at(np.array(fb), hyp[np.array(fb), 0])
+            retry = []
+            for j, i in enumerate(fb):
+                g1j = _settle_constructed(g1[j], hyp[i, 0], con[i, 0])
+                grids1[i] = (g1j, s1[j])
+                if (
+                    not pick(i, g1j[None], s1[j][None], 1, out, con[i, 0:1])
+                    and n_hyp[i] > 1
+                ):
+                    retry.append(i)
+            if retry:
+                ridx = np.repeat(np.array(retry), NW - 1)
+                g2, s2 = score_at(
+                    ridx, hyp[np.array(retry), 1:].reshape(-1, cols, rows, 2)
                 )
-                grids2[i] = (g2s, s2[sl])
-                pick(i, g2s, s2[sl], int(n_hyp[i]) - 1, out, con[i, 1:])
+                for j, i in enumerate(retry):
+                    sl = slice(j * (NW - 1), (j + 1) * (NW - 1))
+                    g2s = np.stack(
+                        [
+                            _settle_constructed(
+                                g2[sl][h], hyp[i, 1 + h], con[i, 1 + h]
+                            )
+                            for h in range(NW - 1)
+                        ]
+                    )
+                    grids2[i] = (g2s, s2[sl])
+                    pick(i, g2s, s2[sl], int(n_hyp[i]) - 1, out, con[i, 1:])
 
     # Repair phase (failed frames only): re-predict lone outlier cells from
     # local homographies, tightly re-refine (max_drift=1.0) and re-score.
-    failed = [i for i in fb if i not in out]
-    if failed:
-        entries = []  # (frame index, repaired grid, constructed mask)
-        for i in failed:
-            cand = [(grids1[i][0], con[i, 0])]
-            if i in grids2:
-                cand += [
-                    (grids2[i][0][h], con[i, h + 1])
-                    for h in range(int(n_hyp[i]) - 1)
-                ]
-            for g, cmask in cand:
-                rep = _repair_grid(g, constructed=cmask)
-                if rep is not None:
-                    entries.append((i,) + rep)
-        if entries:
-            idx = np.array([e[0] for e in entries])
-            rep_grids = np.stack([e[1] for e in entries])
-            rep_masks = np.stack([e[2] for e in entries])
-            grids_r, scores_r = score_at(idx, rep_grids, max_drift=1.0)
+    with metrics.span("detect.finish.repair"):
+        failed = [i for i in fb if i not in out]
+        if failed:
+            entries = []  # (frame index, repaired grid, constructed mask)
             for i in failed:
-                rows_i = np.nonzero(idx == i)[0]
-                if len(rows_i):
-                    pick(
-                        i, grids_r[rows_i], scores_r[rows_i], len(rows_i),
-                        out, rep_masks[rows_i],
-                    )
+                cand = [(grids1[i][0], con[i, 0])]
+                if i in grids2:
+                    cand += [
+                        (grids2[i][0][h], con[i, h + 1])
+                        for h in range(int(n_hyp[i]) - 1)
+                    ]
+                for g, cmask in cand:
+                    rep = _repair_grid(g, constructed=cmask)
+                    if rep is not None:
+                        entries.append((i,) + rep)
+            if entries:
+                idx = np.array([e[0] for e in entries])
+                rep_grids = np.stack([e[1] for e in entries])
+                rep_masks = np.stack([e[2] for e in entries])
+                grids_r, scores_r = score_at(idx, rep_grids, max_drift=1.0)
+                for i in failed:
+                    rows_i = np.nonzero(idx == i)[0]
+                    if len(rows_i):
+                        pick(
+                            i, grids_r[rows_i], scores_r[rows_i], len(rows_i),
+                            out, rep_masks[rows_i],
+                        )
 
     # Coarse-scale retry ladder (failed frames only): candidates + device
     # ordering at the blur's own scale, refinement and anchor scores on the
     # original grays with a scale-matched window.
-    for c_sigma, c_win in _COARSE_SCALES:
-        failed2 = [i for i in range(B) if i not in out]
-        if not failed2:
-            break
-        _, _, gridc, s4c, okc = _coarse_retry_impl(
-            gray, torch.as_tensor(failed2, device=dev), max_candidates,
-            nms_radius, rows, cols, template_size, max(win_size, c_win), c_sigma,
-        )
-        okc = okc.cpu().numpy()
-        if okc.any():
-            gridc_h = gridc.cpu().numpy()
-            s4c_h = s4c.cpu().numpy()
-        for j, i in enumerate(failed2):
-            if okc[j]:
-                pick(
-                    i, gridc_h[j][None], s4c_h[j][None], 1, out,
-                    win=max(win_size, c_win),
-                )
+    with metrics.span("detect.finish.coarse"):
+        for c_sigma, c_win in _COARSE_SCALES:
+            failed2 = [i for i in range(B) if i not in out]
+            if not failed2:
+                break
+            metrics.count("detect.coarse.tried", len(failed2))
+            n_out = len(out)
+            _, _, gridc, s4c, okc = _coarse_retry_impl(
+                gray, torch.as_tensor(failed2, device=dev), max_candidates,
+                nms_radius, rows, cols, template_size, max(win_size, c_win), c_sigma,
+            )
+            okc = okc.cpu().numpy()
+            if okc.any():
+                gridc_h = gridc.cpu().numpy()
+                s4c_h = s4c.cpu().numpy()
+            for j, i in enumerate(failed2):
+                if okc[j]:
+                    pick(
+                        i, gridc_h[j][None], s4c_h[j][None], 1, out,
+                        win=max(win_size, c_win),
+                    )
+            metrics.count("detect.coarse.accepted", len(out) - n_out)
 
     # Occlusion escalation (after the coarse ladder): host ordering with a
     # relaxed hole budget; constructed cells settle back onto their
     # homography predictions where refinement found no saddle.
-    esc_budget = _escalated_hole_budget(rows * cols)
-    failed3 = [i for i in range(B) if i not in out]
-    if failed3 and esc_budget > _HOLE_TOLERANCE:
-        if xy is None:
-            xy = xy_d.cpu().numpy()
-            score = score_d.cpu().numpy()
-        entries = []
-        for i in failed3:
-            wins = order_grid_points(
-                xy[i], score[i], board_shape, refined=False, n_windows=NW,
-                return_masks=True, max_holes=esc_budget,
-            )
-            for uvs, mask in wins:
-                entries.append(
-                    (
-                        i,
-                        np.asarray(uvs).reshape(cols, rows, 2),
-                        np.asarray(mask).reshape(cols, rows),
-                    )
-                )
-        if entries:
-            idx = np.array([e[0] for e in entries])
-            esc_grids = np.stack([e[1] for e in entries])
-            esc_masks = np.stack([e[2] for e in entries])
-            grids_e, scores_e = score_at(idx, esc_grids)
+    with metrics.span("detect.finish.escalate"):
+        esc_budget = _escalated_hole_budget(rows * cols)
+        failed3 = [i for i in range(B) if i not in out]
+        if failed3 and esc_budget > _HOLE_TOLERANCE:
+            if xy is None:
+                xy = xy_d.cpu().numpy()
+                score = score_d.cpu().numpy()
+            entries = []
             for i in failed3:
-                rows_i = np.nonzero(idx == i)[0]
-                if len(rows_i):
-                    g_set = np.stack(
-                        [
-                            _settle_constructed(
-                                grids_e[r], esc_grids[r], esc_masks[r]
-                            )
-                            for r in rows_i
-                        ]
+                wins = order_grid_points(
+                    xy[i], score[i], board_shape, refined=False, n_windows=NW,
+                    return_masks=True, max_holes=esc_budget,
+                )
+                for uvs, mask in wins:
+                    entries.append(
+                        (
+                            i,
+                            np.asarray(uvs).reshape(cols, rows, 2),
+                            np.asarray(mask).reshape(cols, rows),
+                        )
                     )
-                    pick(
-                        i, g_set, scores_e[rows_i], len(rows_i), out,
-                        esc_masks[rows_i],
-                    )
+            if entries:
+                idx = np.array([e[0] for e in entries])
+                esc_grids = np.stack([e[1] for e in entries])
+                esc_masks = np.stack([e[2] for e in entries])
+                grids_e, scores_e = score_at(idx, esc_grids)
+                for i in failed3:
+                    rows_i = np.nonzero(idx == i)[0]
+                    if len(rows_i):
+                        g_set = np.stack(
+                            [
+                                _settle_constructed(
+                                    grids_e[r], esc_grids[r], esc_masks[r]
+                                )
+                                for r in rows_i
+                            ]
+                        )
+                        pick(
+                            i, g_set, scores_e[rows_i], len(rows_i), out,
+                            esc_masks[rows_i],
+                        )
 
     # Normalized-anchor rescue (near-miss frames only): re-score the best
     # grid on locally normalized grays; a decisive margin accepts. Only
     # plausible margins (>= 0.4x the threshold) are retried.
-    if reorder and normalize_image:
-        resc = [
-            i
-            for i in range(B)
-            if i not in out
-            and i in near
-            and near[i][0] >= 0.4 * match_score_min_diff
-        ]
-        if resc:
-            grids_n = np.stack([near[i][1] for i in resc])
-            scores_n = _anchor_scores_normalized_at(
-                gray,
-                torch.as_tensor(resc, device=dev),
-                torch.as_tensor(grids_n, dtype=gray.dtype, device=dev),
-                template_size,
-            ).cpu().numpy()
-            for j, i in enumerate(resc):
-                ms = scores_n[j]
-                ss = np.sort(ms)[::-1]
-                if ss[0] - ss[1] >= match_score_min_diff:
-                    out[int(i)] = apply_anchor(near[i][1], ms)
-                    acc_win[int(i)] = win_size
+    with metrics.span("detect.finish.rescue"):
+        if reorder and normalize_image:
+            resc = [
+                i
+                for i in range(B)
+                if i not in out
+                and i in near
+                and near[i][0] >= 0.4 * match_score_min_diff
+            ]
+            if resc:
+                grids_n = np.stack([near[i][1] for i in resc])
+                scores_n = _anchor_scores_normalized_at(
+                    gray,
+                    torch.as_tensor(resc, device=dev),
+                    torch.as_tensor(grids_n, dtype=gray.dtype, device=dev),
+                    template_size,
+                ).cpu().numpy()
+                for j, i in enumerate(resc):
+                    ms = scores_n[j]
+                    ss = np.sort(ms)[::-1]
+                    if ss[0] - ss[1] >= match_score_min_diff:
+                        out[int(i)] = apply_anchor(near[i][1], ms)
+                        acc_win[int(i)] = win_size
     return (out, acc_win) if return_win else out

@@ -204,31 +204,34 @@ def select_ba_frames(
     to ``n_frames``. The forward model runs on ``device`` (None: the CUDA
     device); the selection itself is host numpy.
     """
-    all_calib_uvs = np.asarray(all_calib_uvs)
-    full = ~np.isnan(all_calib_uvs).any((-1, -2))
-    use_frames = np.nonzero(full.sum(0) > 1)[0]
-    pred = _np(
-        predict_calib_uvs(
-            all_extrinsics, all_intrinsics, calib_objpoints,
-            np.asarray(calib_poses)[use_frames], device=device,
+    with metrics.span("ba.select_frames.host"):
+        all_calib_uvs = np.asarray(all_calib_uvs)
+        full = ~np.isnan(all_calib_uvs).any((-1, -2))
+        use_frames = np.nonzero(full.sum(0) > 1)[0]
+    with metrics.span("ba.select_frames.predict"):
+        pred = _np(
+            predict_calib_uvs(
+                all_extrinsics, all_intrinsics, calib_objpoints,
+                np.asarray(calib_poses)[use_frames], device=device,
+            )
         )
-    )
-    err = np.linalg.norm(all_calib_uvs[:, use_frames] - pred, axis=-1)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", category=RuntimeWarning)
-        worst_mean_err = np.nanmax(np.nanmean(err, axis=-1), axis=0)
-        if outlier_threshold is None:
-            outlier_threshold = 5 * np.nanmedian(err)
-    exclude = np.nan_to_num(worst_mean_err) > outlier_threshold
-    use_frames = use_frames[~exclude]
-    if verbose:
-        print(
-            f"Excluding {int(exclude.sum())} out of {len(use_frames)} frames "
-            f"based on an outlier threshold of {outlier_threshold}"
-        )
-    if n_frames is not None and n_frames < len(use_frames):
-        rng = np.random.default_rng(seed)
-        use_frames = np.sort(rng.choice(use_frames, n_frames, replace=False))
+    with metrics.span("ba.select_frames.host"):
+        err = np.linalg.norm(all_calib_uvs[:, use_frames] - pred, axis=-1)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            worst_mean_err = np.nanmax(np.nanmean(err, axis=-1), axis=0)
+            if outlier_threshold is None:
+                outlier_threshold = 5 * np.nanmedian(err)
+        exclude = np.nan_to_num(worst_mean_err) > outlier_threshold
+        use_frames = use_frames[~exclude]
+        if verbose:
+            print(
+                f"Excluding {int(exclude.sum())} out of {len(use_frames)} frames "
+                f"based on an outlier threshold of {outlier_threshold}"
+            )
+        if n_frames is not None and n_frames < len(use_frames):
+            rng = np.random.default_rng(seed)
+            use_frames = np.sort(rng.choice(use_frames, n_frames, replace=False))
     return use_frames
 
 
@@ -284,44 +287,48 @@ def _repair_bad_poses(cam, poses, obs, mask, objpoints, opts, threshold=5.0):
     from .initialize import consensus_calib_poses, estimate_pose
 
     dev, dtype = poses.device, poses.dtype
-    err = np.linalg.norm(_np(compute_residuals(cam, poses, obs, mask, objpoints)), axis=-1)
-    mask_np = _np(mask)
-    with np.errstate(invalid="ignore"), warnings.catch_warnings():
-        warnings.simplefilter("ignore", category=RuntimeWarning)
-        per_frame = np.nanmean(np.where(mask_np, err, np.nan), axis=(0, 2))  # (F,)
-    med = np.nanmedian(per_frame)
-    bad = np.nan_to_num(per_frame, nan=0.0) > threshold * med
+    with metrics.span("ba.pose_repair.flag"):
+        err = np.linalg.norm(_np(compute_residuals(cam, poses, obs, mask, objpoints)), axis=-1)
+        mask_np = _np(mask)
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            per_frame = np.nanmean(np.where(mask_np, err, np.nan), axis=(0, 2))  # (F,)
+        med = np.nanmedian(per_frame)
+        bad = np.nan_to_num(per_frame, nan=0.0) > threshold * med
+    metrics.count("ba.pose_repair.flagged", int(bad.sum()))
     if not bad.any():
         return poses, 0
 
     # Fresh PnP init for the bad frames at the refined camera parameters.
-    ext, intr = _arrays_to_params(cam.to(torch.float64))
-    obs_nan = np.where(mask_np[..., None], _np(obs.to(torch.float64)), np.nan)
-    bad_ix = np.nonzero(bad)[0]
-    all_poses = np.stack([
-        _np(estimate_pose(obs_nan[c][bad_ix], objpoints, *intr[c], device=dev))
-        for c in range(len(ext))
-    ])
-    reinit = _np(consensus_calib_poses(all_poses, ext, device=dev))
-    poses_np = _np(poses).copy()
-    ok = ~np.isnan(reinit).any(-1)
-    poses_np[bad_ix[ok]] = reinit[ok]
+    with metrics.span("ba.pose_repair.reinit"):
+        ext, intr = _arrays_to_params(cam.to(torch.float64))
+        obs_nan = np.where(mask_np[..., None], _np(obs.to(torch.float64)), np.nan)
+        bad_ix = np.nonzero(bad)[0]
+        all_poses = np.stack([
+            _np(estimate_pose(obs_nan[c][bad_ix], objpoints, *intr[c], device=dev))
+            for c in range(len(ext))
+        ])
+        reinit = _np(consensus_calib_poses(all_poses, ext, device=dev))
+        poses_np = _np(poses).copy()
+        ok = ~np.isnan(reinit).any(-1)
+        poses_np[bad_ix[ok]] = reinit[ok]
 
-    pose_free = torch.zeros((poses_np.shape[0], 6), dtype=dtype, device=dev)
-    pose_free[torch.as_tensor(bad_ix, device=dev)] = 1.0
-    cam_free = torch.zeros((cam.shape[0], 12), dtype=dtype, device=dev)
-    _, poses2, _ = lm_solve(
-        cam, torch.as_tensor(np.nan_to_num(poses_np), dtype=dtype, device=dev),
-        obs, mask, objpoints, opts, cam_free=cam_free, pose_free=pose_free,
-    )
-    err2 = np.linalg.norm(_np(compute_residuals(cam, poses2, obs, mask, objpoints)), axis=-1)
-    with np.errstate(invalid="ignore"), warnings.catch_warnings():
-        warnings.simplefilter("ignore", category=RuntimeWarning)
-        per_frame2 = np.nanmean(np.where(mask_np, err2, np.nan), axis=(0, 2))
-    improved = bad & (np.nan_to_num(per_frame2, nan=np.inf) < per_frame)
-    poses_out = _np(poses).copy()
-    poses_out[improved] = _np(poses2)[improved]
-    return torch.as_tensor(poses_out, dtype=dtype, device=dev), int(improved.sum())
+    with metrics.span("ba.pose_repair.solve"):
+        pose_free = torch.zeros((poses_np.shape[0], 6), dtype=dtype, device=dev)
+        pose_free[torch.as_tensor(bad_ix, device=dev)] = 1.0
+        cam_free = torch.zeros((cam.shape[0], 12), dtype=dtype, device=dev)
+        _, poses2, _ = lm_solve(
+            cam, torch.as_tensor(np.nan_to_num(poses_np), dtype=dtype, device=dev),
+            obs, mask, objpoints, opts, cam_free=cam_free, pose_free=pose_free,
+        )
+        err2 = np.linalg.norm(_np(compute_residuals(cam, poses2, obs, mask, objpoints)), axis=-1)
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            per_frame2 = np.nanmean(np.where(mask_np, err2, np.nan), axis=(0, 2))
+        improved = bad & (np.nan_to_num(per_frame2, nan=np.inf) < per_frame)
+        poses_out = _np(poses).copy()
+        poses_out[improved] = _np(poses2)[improved]
+        return torch.as_tensor(poses_out, dtype=dtype, device=dev), int(improved.sum())
 
 
 # LMOptions fields a bundle_adjust keyword (or a dict ``lm_options``) may set,
@@ -384,8 +391,11 @@ def bundle_adjust(
     in either package. On a mesh only rank 0 writes the file, and every
     rank reads it.
 
-    Stage timers (``utils.metrics``): ``ba.select_frames``, ``ba.lm_solve``,
-    ``ba.f64_polish``, ``ba.pose_repair``.
+    Spans (``utils.metrics``): ``ba.select_frames`` (with
+    ``ba.select_frames.predict`` / ``.host`` inside), ``ba.prepare``,
+    ``ba.lm_solve``, ``ba.f64_polish``, ``ba.pose_repair`` (with
+    ``ba.pose_repair.flag`` / ``.reinit`` / ``.solve`` inside, and the
+    counter ``ba.pose_repair.flagged``).
 
     Returns (adjusted_extrinsics, adjusted_intrinsics, adjusted_calib_poses,
     use_frames, result_info), all numpy.
@@ -431,7 +441,7 @@ def bundle_adjust(
     if ckpt is not None:
         use_frames = ckpt["use_frames"]
     else:
-        with metrics.timer("ba.select_frames"):
+        with metrics.span("ba.select_frames"):
             use_frames = select_ba_frames(
                 all_calib_uvs, all_extrinsics, all_intrinsics, calib_objpoints,
                 calib_poses, n_frames=n_frames,
@@ -439,56 +449,58 @@ def bundle_adjust(
                 device=dev,
             )
 
-    obs_np = all_calib_uvs[:, use_frames]
-    mask_np = ~np.isnan(obs_np).any(-1)  # (C, F, N) per-point mask
-    if ckpt is not None:
-        cam0, poses0 = ckpt["cam"], ckpt["poses"]
-    else:
-        cam0 = _params_to_arrays(all_extrinsics, all_intrinsics)
-        poses0 = np.asarray(calib_poses)[use_frames]
+    with metrics.span("ba.prepare"):
+        obs_np = all_calib_uvs[:, use_frames]
+        mask_np = ~np.isnan(obs_np).any(-1)  # (C, F, N) per-point mask
+        if ckpt is not None:
+            cam0, poses0 = ckpt["cam"], ckpt["poses"]
+        else:
+            cam0 = _params_to_arrays(all_extrinsics, all_intrinsics)
+            poses0 = np.asarray(calib_poses)[use_frames]
 
-    # Numerics defaults (see lm_core.LMOptions): f64 data + f32 Jacobians
-    # everywhere; off the CPU also the JAX package's accelerator recipe.
-    default_jac_dtype = None
-    default_f32 = {}
-    if dtype is None:
-        dtype = torch.float64
-        default_jac_dtype = "float32"
-        default_f32 = accelerator_recipe(dev)
-    elif isinstance(dtype, str):
-        dtype = getattr(torch, dtype)
-    as_t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
-    obs = as_t(np.nan_to_num(obs_np))
-    mask = as_t(mask_np, torch.bool)
-    cam0_t = as_t(cam0)
-    poses0_t = as_t(np.nan_to_num(poses0))
-    objpoints = as_t(calib_objpoints)
+        # Numerics defaults (see lm_core.LMOptions): f64 data + f32 Jacobians
+        # everywhere; off the CPU also the JAX package's accelerator recipe.
+        default_jac_dtype = None
+        default_f32 = {}
+        if dtype is None:
+            dtype = torch.float64
+            default_jac_dtype = "float32"
+            default_f32 = accelerator_recipe(dev)
+        elif isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        as_t = lambda a, dt=dtype: torch.as_tensor(  # noqa: E731
+            np.asarray(a), dtype=dt, device=dev)
+        obs = as_t(np.nan_to_num(obs_np))
+        mask = as_t(mask_np, torch.bool)
+        cam0_t = as_t(cam0)
+        poses0_t = as_t(np.nan_to_num(poses0))
+        objpoints = as_t(calib_objpoints)
 
-    if isinstance(lm_options, dict):
-        # A dict of LMOptions overrides is layered on the auto-selected
-        # recipe (an LMOptions instance replaces the recipe wholesale).
-        opt_kwargs = {**opt_kwargs, **lm_options}
-        lm_options = None
-    defaults = dict(ftol=1e-4, loss="soft_l1", f_scale=1.0, max_iters=100,
-                    jac_dtype=default_jac_dtype, gtol_rel=0.0,
-                    lambda_escalation=1.0)
-    defaults.update(default_f32)
-    opts = lm_options or LMOptions(**{
-        k: opt_kwargs[k] if k in opt_kwargs else defaults[k]
-        for k in _FORWARDED if k in opt_kwargs or k in defaults
-    })
+        if isinstance(lm_options, dict):
+            # A dict of LMOptions overrides is layered on the auto-selected
+            # recipe (an LMOptions instance replaces the recipe wholesale).
+            opt_kwargs = {**opt_kwargs, **lm_options}
+            lm_options = None
+        defaults = dict(ftol=1e-4, loss="soft_l1", f_scale=1.0, max_iters=100,
+                        jac_dtype=default_jac_dtype, gtol_rel=0.0,
+                        lambda_escalation=1.0)
+        defaults.update(default_f32)
+        opts = lm_options or LMOptions(**{
+            k: opt_kwargs[k] if k in opt_kwargs else defaults[k]
+            for k in _FORWARDED if k in opt_kwargs or k in defaults
+        })
 
-    def _solve(cam_in, poses_in, chunk_opts, init_lam=None, init_grad0=None):
-        if mesh is not None:
-            from ..parallel.sharded import sharded_lm_solve
+        def _solve(cam_in, poses_in, chunk_opts, init_lam=None, init_grad0=None):
+            if mesh is not None:
+                from ..parallel.sharded import sharded_lm_solve
 
-            return sharded_lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
-                                    mesh=mesh, init_lam=init_lam, init_grad0=init_grad0)
-        return lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
-                        init_lam=init_lam, init_grad0=init_grad0)
+                return sharded_lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
+                                        mesh=mesh, init_lam=init_lam, init_grad0=init_grad0)
+            return lm_solve(cam_in, poses_in, obs, mask, objpoints, chunk_opts,
+                            init_lam=init_lam, init_grad0=init_grad0)
 
-    with metrics.timer("ba.lm_solve", n_cameras=n_cameras, n_frames=len(use_frames),
-                       sharded=mesh is not None):
+    with metrics.span("ba.lm_solve", n_cameras=n_cameras, n_frames=len(use_frames),
+                      sharded=mesh is not None):
         if checkpoint_path is None:
             cam, poses, info = _solve(cam0_t, poses0_t, opts)
         else:
@@ -565,7 +577,7 @@ def bundle_adjust(
             opts, block_dtype=None, cost_dtype=None, solve_dtype=None,
             grad_dtype=None, max_iters=10,
         )
-        with metrics.timer("ba.f64_polish", on_cpu=False):
+        with metrics.span("ba.f64_polish", on_cpu=False):
             cam, poses, pinfo = _solve(cam, poses, polish_opts,
                                        init_lam=float(info["lambda"]))
         info = dict(info)
@@ -584,7 +596,7 @@ def bundle_adjust(
         metrics.log("ba_pose_repair_skipped", reason="mesh")
         repair_poses = False
     if repair_poses:
-        with metrics.timer("ba.pose_repair"):
+        with metrics.span("ba.pose_repair"):
             poses, n_repaired = _repair_bad_poses(cam, poses, obs, mask, objpoints, opts)
             if n_repaired:
                 info = dict(info)

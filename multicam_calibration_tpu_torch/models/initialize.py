@@ -49,6 +49,7 @@ from ..ops.transforms import (
     get_transformation_vector,
     se3_inverse,
 )
+from ..utils.metrics import metrics
 from .lm_core import (
     LMOptions,
     _cholesky,
@@ -325,28 +326,32 @@ def _cam12(K, dist):
 
 @with_highest_precision
 def _estimate_pose_impl(calib_uvs, K, dist, objpoints):
-    mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)  # (F,)
-    und = undistort_points(calib_uvs, K, dist)
-    Hs, _ = estimate_board_homographies(und, objpoints, mask)
-    poses0 = poses_from_homographies(Hs, K)
-    poses0 = torch.where(mask[:, None], poses0, 0.0)
-    cam12 = _cam12(K, dist)
-    point_mask = mask[:, None].expand(calib_uvs.shape[:2])
-    # Polish both branches of the planar-pose ambiguity; keep the better.
-    poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
-    poses_b = _refine_poses_gn(
-        _twin_planar_pose(poses_a), cam12, calib_uvs, point_mask, objpoints
-    )
-
-    def sq_err(poses):
-        pred = _predict(cam12[None], poses, objpoints)[0]
-        r = torch.where(
-            point_mask[..., None], torch.nan_to_num(calib_uvs) - pred, 0.0
+    # Under torch.vmap this body runs once per call, so each span is one
+    # entry per batch of cameras, not one per camera.
+    with metrics.span("estimate_pose.homography"):
+        mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)  # (F,)
+        und = undistort_points(calib_uvs, K, dist)
+        Hs, _ = estimate_board_homographies(und, objpoints, mask)
+        poses0 = poses_from_homographies(Hs, K)
+        poses0 = torch.where(mask[:, None], poses0, 0.0)
+    with metrics.span("estimate_pose.gauss_newton"):
+        cam12 = _cam12(K, dist)
+        point_mask = mask[:, None].expand(calib_uvs.shape[:2])
+        # Polish both branches of the planar-pose ambiguity; keep the better.
+        poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
+        poses_b = _refine_poses_gn(
+            _twin_planar_pose(poses_a), cam12, calib_uvs, point_mask, objpoints
         )
-        return torch.sum(r**2, dim=(-1, -2))
 
-    better_b = sq_err(poses_b) < sq_err(poses_a)
-    poses = torch.where(better_b[:, None], poses_b, poses_a)
+        def sq_err(poses):
+            pred = _predict(cam12[None], poses, objpoints)[0]
+            r = torch.where(
+                point_mask[..., None], torch.nan_to_num(calib_uvs) - pred, 0.0
+            )
+            return torch.sum(r**2, dim=(-1, -2))
+
+        better_b = sq_err(poses_b) < sq_err(poses_a)
+        poses = torch.where(better_b[:, None], poses_b, poses_a)
     return torch.where(mask[:, None], poses, torch.nan)
 
 
@@ -701,14 +706,15 @@ def consensus_calib_poses(all_calib_poses, all_extrinsics, device=None):
     """Median world-frame board pose across cameras, per frame: (F, 6)
     tensor. T_board2world = T_world2cam^-1 @ T_board2cam per camera,
     element-wise masked median of the 6-vectors across cameras."""
-    dev = _pick(device, all_calib_poses, all_extrinsics)
-    poses = _t(all_calib_poses, dev)  # (C, F, 6)
-    ext = _t(all_extrinsics, dev)  # (C, 6)
-    detected = torch.isfinite(poses).all(-1)  # (C, F)
-    T_b2c = get_transformation_matrix(torch.nan_to_num(poses))
-    T_w2c_inv = se3_inverse(get_transformation_matrix(ext))[:, None]
-    t_b2w = get_transformation_vector(T_w2c_inv @ T_b2c)  # (C, F, 6)
-    return masked_median(t_b2w, detected[..., None], axis=0)
+    with metrics.span("consensus_calib_poses"):
+        dev = _pick(device, all_calib_poses, all_extrinsics)
+        poses = _t(all_calib_poses, dev)  # (C, F, 6)
+        ext = _t(all_extrinsics, dev)  # (C, 6)
+        detected = torch.isfinite(poses).all(-1)  # (C, F)
+        T_b2c = get_transformation_matrix(torch.nan_to_num(poses))
+        T_w2c_inv = se3_inverse(get_transformation_matrix(ext))[:, None]
+        t_b2w = get_transformation_vector(T_w2c_inv @ T_b2c)  # (C, F, 6)
+        return masked_median(t_b2w, detected[..., None], axis=0)
 
 
 def _median_reproj_err(calib_uvs, poses, K, dist, objpoints, device):
@@ -834,7 +840,7 @@ def calibrate(
     (all_extrinsics (C, 6) numpy, all_intrinsics list of (K, dist),
     consensus poses (F, 6) numpy, spanning_tree).
 
-    Stage timers (``utils.metrics``): ``calibrate.intrinsics``,
+    Spans (``utils.metrics``): ``calibrate.intrinsics``,
     ``calibrate.poses``, ``calibrate.extrinsics``, ``calibrate.consensus``,
     ``calibrate.repair``. As in the JAX package, uniform (C, F, N, 2)
     detections take the camera-batched entry points
@@ -842,8 +848,6 @@ def calibrate(
     (here a CUDA device, :func:`_batched_route`), where per-camera dispatch
     dominates; on the CPU each camera is solved on its own.
     """
-    from ..utils.metrics import metrics
-
     dev = _pick(device, all_calib_uvs)
     n_cameras = len(all_calib_uvs)
     try:
@@ -853,7 +857,7 @@ def calibrate(
     batched = _batched_route(uvs_arr, dev)
     if verbose:
         print("Estimating camera intrinsics")
-    with metrics.timer("calibrate.intrinsics", n_cameras=n_cameras):
+    with metrics.span("calibrate.intrinsics", n_cameras=n_cameras):
         if batched:
             all_intrinsics = get_intrinsics_batch(
                 uvs_arr, calib_objpoints, img_sizes,
@@ -869,7 +873,7 @@ def calibrate(
             ]
     if verbose:
         print("Initializing calibration object poses")
-    with metrics.timer("calibrate.poses"):
+    with metrics.span("calibrate.poses"):
         if batched:
             # np.array (a copy): _repair_bad_intrinsics writes rows in place.
             all_calib_poses = np.array(_host(estimate_pose_batch(
@@ -885,18 +889,18 @@ def calibrate(
             ])
     if verbose:
         print("Estimating camera extrinsics")
-    with metrics.timer("calibrate.extrinsics"):
+    with metrics.span("calibrate.extrinsics"):
         all_extrinsics, spanning_tree = estimate_all_extrinsics(
             all_calib_poses, root=root, device=dev
         )
     if verbose:
         print("Merging calibration object poses")
-    with metrics.timer("calibrate.consensus"):
+    with metrics.span("calibrate.consensus"):
         calib_poses = _host(consensus_calib_poses(all_calib_poses, all_extrinsics,
                                                   device=dev))
     # Rig-consistency check + single-camera init repair (needs the
     # consensus poses). On repair, re-anchor the tree and consensus once.
-    with metrics.timer("calibrate.repair"):
+    with metrics.span("calibrate.repair"):
         all_intrinsics = list(all_intrinsics)
         if _repair_bad_intrinsics(
             all_calib_uvs, img_sizes, calib_objpoints, all_intrinsics,

@@ -44,11 +44,11 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..device import with_highest_precision
 from ..ops import ba_cuda
 from ..ops.rotation import so3_exp, so3_left_jacobian
+from ..utils.metrics import metrics
 
 __all__ = [
     "LMOptions",
@@ -857,7 +857,7 @@ def lm_solve(
         prepared = _prepare(obs, mask, opts)
 
     def cost_fn(cam, poses):
-        with record_function("lm_solve.cost"):
+        with metrics.span("lm_solve.cost"):
             return float(_psum(_cost(cam, poses, obs, mask, objpoints, opts, prepared),
                                axis_name))
 
@@ -871,7 +871,7 @@ def lm_solve(
     rows = []
 
     while not done and it < opts.max_iters:
-        with record_function("lm_solve.build_normal_blocks"):
+        with metrics.span("lm_solve.build_normal_blocks"):
             blocks = _build(cam, poses, obs, mask, objpoints, opts, cam_free,
                             pose_free, prepared)
             grad_norm = float(torch.sqrt(
@@ -898,7 +898,7 @@ def lm_solve(
         lam_t, lam_used, rho_used = lam, lam, 1.0
         tries, accepted = 0, False
         while not accepted and tries < opts.max_tries and lam_t < opts.max_lambda:
-            with record_function("lm_solve.schur_solve"):
+            with metrics.span("lm_solve.schur_solve"):
                 dcam, dpose = schur_solve(blocks, lam_t, axis_name, opts=opts)
             dpose = dpose[:F]  # chunked solves return padded rows
             cam_try = cam + dcam

@@ -28,17 +28,18 @@ the window (JAX pads the batch to a power of two and drops out-of-bounds
 slots, for static shapes); there is no per-batch-size program cache and no
 buffer donation (the window tensors are updated in place).
 
-Profiler ranges: ``rolling.pose_init`` (ending in the one host read of the
-new poses), ``rolling.admit`` (host eviction), ``rolling.scatter`` and
-``rolling.lm_solve`` (ending in the one host read of the cameras).
+Spans (``utils.metrics``): ``rolling.pose_init`` (ending in the one host
+read of the new poses), ``rolling.admit`` (host eviction),
+``rolling.scatter`` and ``rolling.lm_solve`` (ending in the one host read of
+the cameras).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..utils.metrics import metrics
 from .bundle_adjustment import _arrays_to_params, _params_to_arrays
 from .initialize import _batched_estimate_pose, consensus_calib_poses
 from .lm_core import LMOptions, accelerator_recipe, lm_solve
@@ -186,7 +187,7 @@ class RollingCalibrator:
         # 1. pose init of the incoming frames at the current cameras, all
         # cameras at once, and their consensus, on the device (f64).
         as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
-        with record_function("rolling.pose_init"):
+        with metrics.span("rolling.pose_init"):
             batch_d = as_t(batch_uvs)
             per_cam = _batched_estimate_pose(
                 batch_d,
@@ -200,7 +201,7 @@ class RollingCalibrator:
         # 2. admit to the window (a batch larger than the window keeps its
         # newest `window` frames); the host mirrors carry only visibility
         # and arrival order (what eviction reads).
-        with record_function("rolling.admit"):
+        with metrics.span("rolling.admit"):
             new_ix = np.nonzero(ok)[0]
             if len(new_ix) > self.window:
                 new_ix = new_ix[-self.window:]
@@ -215,7 +216,7 @@ class RollingCalibrator:
         # 3. scatter the admitted rows into the device window, then the
         # warm-started windowed LM on the active frames.
         nb = len(new_ix)
-        with record_function("rolling.scatter"):
+        with metrics.span("rolling.scatter"):
             if nb:
                 sel = batch_d[:, torch.as_tensor(new_ix, device=dev)]
                 slots_d = torch.as_tensor(slots, device=dev)
@@ -225,7 +226,7 @@ class RollingCalibrator:
                     poses_new[torch.as_tensor(new_ix, device=dev)]).to(dt)
             mask_eff = self._msk_d & torch.as_tensor(active, device=dev)[None, :, None]
         lam = self._lam if self._lam is not None else float(self._opts.init_lambda)
-        with record_function("rolling.lm_solve"):
+        with metrics.span("rolling.lm_solve"):
             cam_d, self._poses_d, info = lm_solve(
                 torch.as_tensor(_params_to_arrays(self._ext, self._intr), dtype=dt, device=dev),
                 self._poses_d, self._obs_d, mask_eff, self._objp_d, self._opts,
