@@ -143,7 +143,13 @@ line each:
    device busy time), both kernels against their twins at an update's
    start and timed at (64, 256, 35), the final cost at most 1.05 x the
    noise floor over the effective mask ``msk & active``, relative rotations
-   within 0.02 rad of the truth;
+   within 0.02 rad of the truth; ``pose_gn_kernel`` launched once an update
+   (``pose_gn_refine.launches`` over the timed updates, and 1 under the
+   profiler), and held to its twin on the first timed update's own inputs
+   (the homography stage's poses, cameras, detections and mask at 64 x 8
+   x 35; ``compare_poses``, the card tests' tolerances), timed (wrapper
+   and twin by CUDA events, the kernel alone by the profiler) with its
+   bound (``pose_bound``);
 20. videos to a saved calibration (``video_phase``): 6 cameras x 600
    frames of 640 x 480 rendered from ``video_rig`` with each camera's lens
    and written as MJPEG .avi by OpenCV's built-in writer (one process per
@@ -217,7 +223,8 @@ Then one line naming the host packages this machine has (h5py, yaml,
 pandas, cv2, libavformat; it gates nothing),
 one JSON line describing each kernel, with its bound on this card
 (the larger of bytes over 3.35 TB/s and operations over the peak rate of
-their type: 67 TFLOP/s f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet),
+their type: 67 TFLOP/s f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet)
+and, for ``pose_gn_kernel``, its device time alone (``alone_us``),
 and last the device line. Any failed check raises, and the script exits
 non-zero. It needs a CUDA device and the repository around it; it imports
 no JAX.
@@ -264,6 +271,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                             "multicam_calibration_tpu/ops/pallas_kernels.py:139"),
     "corner_response_kernel": ("multicam_calibration_tpu_torch/csrc/corner_kernels.cu",
                                "multicam_calibration_tpu/ops/pallas_kernels.py:44"),
+    "pose_gn_kernel": ("multicam_calibration_tpu_torch/csrc/pose_kernels.cu",
+                       "replaces no TPU kernel"),
 }
 LOWBAND_F = (2, 3)  # scripts/bench_detection.py:211
 SCALES = (0.5, 0.75)
@@ -423,6 +432,86 @@ def corner_bound(B, H, W, sigma, nms, peaks):
     return bound(px * (4 + 4 + (1 if peaks else 0)), [(px * per_px, F32_FLOPS)])
 
 
+def pose_bound(C, F, N):
+    """Bound of the pose kernel on (C, F) camera-frames of N points, all of
+    them detected: poses, detections, mask and cameras read once, the poses
+    written once. Operations in f64, per point and Gauss-Newton step (20
+    steps): the prediction ~32 flops (rotate, translate, divide, distort,
+    scale), its 6 derivative columns ~171, the 27 sums of J^T J and J^T r
+    108; and ~36 a point for each branch's squared error. The rotations,
+    factors and solves a frame (~2,000 flops a step) are left out."""
+    nbytes = C * F * (6 * 8 * 2 + N * 2 * 8 + 1) + C * 12 * 8 + N * 3 * 8
+    return bound(nbytes, [(C * F * N * (20 * (32 + 171 + 108) + 2 * 36), F64_FLOPS)])
+
+
+def compare_poses(torch, got, args, min_converged=0.9):
+    """``pose_gn_refine``'s result ``got`` (C, F, 6) against its twin on the
+    same inputs ``args`` (poses0, cam12, uvs, mask, objpoints), at the
+    tolerances of tests/test_torch_cuda.py's module docstring; raises on a
+    miss. Stable: a converged frame whose twin pose stays within 1e-9 +
+    1e-9 of itself when the detections or the camera matrix are scaled by
+    1 +- 1e-15 and, for card tensors, when the twin runs on the CPU.
+    Returns the counts of camera-frames (detected, converged, unstable:
+    converged but not stable, so left out of the 1e-9 comparison;
+    other_branch: converged, the other planar branch) and the masks (C, F)
+    ``converged`` and ``kept_b`` (the twin kept branch B where A and B
+    differ)."""
+    from multicam_calibration_tpu_torch.models import initialize as tinit
+    from multicam_calibration_tpu_torch.models import lm_core
+    from multicam_calibration_tpu_torch.ops import pose_cuda
+
+    def branches(p0, cam, u, m, o):  # the twin's branch A and branch B
+        pm = m[:, None].expand(u.shape[:2])
+        pa = tinit._refine_poses_gn(p0, cam, u, pm, o)
+        return pa, tinit._refine_poses_gn(tinit._twin_planar_pose(pa), cam, u, pm, o)
+
+    def nudged(k, scale):  # the detections (k = 2) or the camera matrix (k = 1) scaled
+        out = list(args)
+        out[k] = (torch.cat([args[1][:, :4] * scale, args[1][:, 4:]], 1) if k == 1
+                  else args[k] * scale)
+        return out
+
+    ref = pose_cuda.pose_gn_refine_reference(*args)
+    pa, pb = torch.vmap(branches, in_dims=(0, 0, 0, 0, None))(*args)
+    others = [pose_cuda.pose_gn_refine_reference(*nudged(k, 1 + e)).cpu().numpy()
+              for k in (1, 2) for e in (1e-15, -1e-15)]
+    if args[0].device.type != "cpu":  # the twin's other sum order: the CPU's
+        others.append(pose_cuda.pose_gn_refine_reference(*(x.cpu() for x in args)).numpy())
+    got, ref, pa, pb = (x.cpu().numpy() for x in (got, ref, pa, pb))
+    cam12, uvs, objp = args[1].cpu(), args[2].cpu().numpy(), args[4].cpu()
+    detected = args[3].cpu().numpy()
+    check(np.isnan(got[~detected]).all() and np.isnan(ref[~detected]).all(),
+          "pose kernel: an undetected frame is not NaN")
+    pred = torch.vmap(lambda c, p: lm_core._predict(c[None], p, objp)[0])(
+        cam12, torch.as_tensor(np.nan_to_num(ref))).numpy()
+    rms = np.sqrt(((uvs - pred) ** 2).sum(-1).mean(-1))
+    seen = ~np.isnan(ref).any(-1)
+    converged = seen & (rms < 5.0) & (np.linalg.norm(ref[..., :3], axis=-1) < 2 * np.pi)
+    check(converged.sum() >= min_converged * detected.sum(),
+          f"pose twin: {converged.sum()} of {detected.sum()} detected frames converged")
+    check(not np.isnan(got[converged]).any(), "pose kernel: NaN on a frame the twin converged")
+    close = lambda a, b: (np.abs(a - b) <= 1e-9 + 1e-9 * np.abs(b)).all(-1)  # noqa: E731
+    stable = converged.copy()
+    for other in others:
+        stable &= close(np.nan_to_num(other), ref)
+    unstable = int((converged & ~stable).sum())
+    check(unstable <= max(1, 0.01 * converged.sum()),
+          f"pose twin: {unstable} of {converged.sum()} converged frames unstable")
+    dist = lambda a, b: np.abs(a - b).max(-1)  # noqa: E731
+    twins_agree = close(pb, pa)
+    same_branch = twins_agree | ((dist(got, pb) < dist(got, pa)) == (dist(ref, pb) < dist(ref, pa)))
+    check(same_branch[converged].mean() >= 0.99,
+          f"pose kernel: {(~same_branch[converged]).sum()} converged frames on the other branch")
+    keep = stable & same_branch
+    err = np.abs(got[keep] - ref[keep]) - 1e-9 * np.abs(ref[keep])
+    check(not (err > 1e-9).any(), f"pose kernel: {(err > 1e-9).any(-1).sum()} stable frames "
+          f"beyond rtol 1e-9 / atol 1e-9 (worst {err.max(initial=0.0):.3e})")
+    return dict(detected=int(detected.sum()), converged=int(converged.sum()), unstable=unstable,
+                other_branch=int((converged & ~same_branch).sum()),
+                max_abs=float(np.abs(got[keep] - ref[keep]).max(initial=0.0)),
+                converged_mask=converged, kept_b=converged & ~twins_agree & (dist(ref, pb) == 0))
+
+
 def bench_problem(torch, device):
     """The bench problem as device tensors: (cam0, poses0, obs, mask, objp)."""
     import multicam_calibration_tpu_torch as mct
@@ -504,6 +593,20 @@ def profile_calls(torch, fn, calls=10):
         key = re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name)
         per[key] = per.get(key, 0.0) + e.time_range.elapsed_us() / calls
     return len(dev) / calls, sum(per.values()) / 1e3, per
+
+
+def kernel_alone_us(torch, fn, kernel, calls=10):
+    """(mean device us of one ``kernel`` launch, launches the profiler
+    recorded) over ``calls`` calls of fn() under torch.profiler, after a
+    warm-up: the mean is over the launches recorded, so a session that
+    drops some does not lower it."""
+    fn()
+    torch.cuda.synchronize()
+    _, prof = profiled(torch, lambda: [fn() for _ in range(calls)], f"{kernel} alone")
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and re.sub(r"\(anonymous namespace\)::|\(.*", "", e.name) == kernel]
+    return sum(us) / max(1, len(us)), len(us)
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -1595,23 +1698,31 @@ def flatibration_phase(torch, dev, ref):
         + f", warm-up {warm:.4f} s, median |z| of the flattened inliers {z:.4f} mm")
 
 
-def rolling_phase(torch, dev, ref, errs):
+def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
     """Phase 19: RollingCalibrator, the f64 check against JAX and BASELINE
-    config 4 at bench_streaming.py's shape through both BA kernels."""
+    config 4 at bench_streaming.py's shape through both BA kernels and the
+    pose kernel; the pose kernel's entries of ``launches`` / ``errs`` /
+    ``times`` / ``bounds``."""
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.convert import lm_options_from_jax
-    from multicam_calibration_tpu_torch.models import lm_core, streaming
-    from multicam_calibration_tpu_torch.ops import ba_cuda
+    from multicam_calibration_tpu_torch.models import initialize, lm_core, streaming
+    from multicam_calibration_tpu_torch.ops import ba_cuda, pose_cuda
 
     solves = []  # (start arrays, options, info) of every lm_solve of an update
-    lm_solve = streaming.lm_solve
+    polishes = []  # the arguments of every pose_gn_refine call of the pose init
+    lm_solve, pose_gn_refine = streaming.lm_solve, initialize.pose_gn_refine
 
     def recording_lm_solve(*args, **kwargs):
         out = lm_solve(*args, **kwargs)
         solves.append((args[:5], args[5], out[2]))
         return out
 
+    def recording_pose_gn_refine(*args):
+        polishes.append(args)
+        return pose_gn_refine(*args)
+
     streaming.lm_solve = recording_lm_solve
+    initialize.pose_gn_refine = recording_pose_gn_refine
     try:
         # The f64 check: JAX's options carried over, per-update state as JAX's.
         p = STREAM_F64
@@ -1667,6 +1778,8 @@ def rolling_phase(torch, dev, ref, errs):
         fill_s = time.perf_counter() - fill_t0
 
         rows = []
+        polishes.clear()
+        pose_gn_refine.launches = 0
         for k in range(p["timed"]):
             solves.clear()
             nb0, nc0 = ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches
@@ -1691,6 +1804,9 @@ def rolling_phase(torch, dev, ref, errs):
                           for name, (f, r) in kt.items()}
                 kbounds = ba_bounds(p["n_cameras"], p["window"], rig.calib_objpoints.shape[0],
                                     int(start[3].sum()))
+        n_pose = pose_gn_refine.launches
+        check(n_pose == len(polishes) == p["timed"],
+              f"pose_gn_kernel launches {n_pose} in {p['timed']} timed updates")
         walls = [r[0] for r in rows]
         cost, n_obs = rows[-1][1]["cost"], rows[-1][4]
         floor_cost = 2 * n_obs * 0.5 * NOISE_PX**2 * (1 - 0.75 * NOISE_PX**2)
@@ -1718,7 +1834,9 @@ def rolling_phase(torch, dev, ref, errs):
             nk = (names.count("ba_blocks_kernel"), names.count("ba_cost_kernel"))
             check(nk == (sinfo["n_iters"], sinfo["nfev"]), f"profiler: kernel launches {nk}, "
                   f"n_iters {sinfo['n_iters']}, nfev {sinfo['nfev']}")
-            prof_counts.append(f"{nk[0]}/{nk[1]} of {len(dev_ev)} device ops")
+            check(names.count("pose_gn_kernel") == 1,
+                  f"profiler: {names.count('pose_gn_kernel')} pose_gn_kernel launches an update")
+            prof_counts.append(f"{nk[0]}/{nk[1]}/1 of {len(dev_ev)} device ops")
             ranges = {}
             for e in events:
                 if e.name.startswith("rolling.") and e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1732,6 +1850,21 @@ def rolling_phase(torch, dev, ref, errs):
                 + ", ".join(f"{k} {v:.1f}" for k, v in top))
     finally:
         streaming.lm_solve = lm_solve
+        initialize.pose_gn_refine = pose_gn_refine
+
+    # The pose kernel on the first timed update's own inputs: the homography
+    # stage's poses, the cameras, detections and mask of 64 x 8 x 35.
+    pargs = polishes[0]
+    pC, pF, pN = pargs[2].shape[:3]
+    pose = compare_poses(torch, pose_gn_refine(*pargs), pargs)
+    errs["pose_gn_kernel"] = pose["max_abs"]
+    launches["pose_gn_kernel"] = n_pose
+    times["pose_gn_kernel"] = (cuda_ms(torch, lambda: pose_gn_refine(*pargs)),
+                               cuda_ms(torch, lambda: pose_cuda.pose_gn_refine_reference(*pargs),
+                                       reps=3))
+    pose_alone_us, pose_recorded = kernel_alone_us(torch, lambda: pose_gn_refine(*pargs),
+                                                   "pose_gn_kernel")
+    bounds["pose_gn_kernel"] = pose_bound(pC, pF, pN)
 
     # calibration_uncertainty at this window (64 cameras: S is 768 x 768).
     mask = solves[-1][0][3].cpu().numpy()
@@ -1745,21 +1878,33 @@ def rolling_phase(torch, dev, ref, errs):
           "window uncertainty: root sd not 0 or non-finite sd")
 
     log("19 rolling", f"{p['n_cameras']} cameras, window {p['window']}, batches of "
-        f"{p['batch']} (BASELINE.json config 4, scripts/bench_streaming.py:16-19), f32 recipe: "
+        f"{p['batch']} (BASELINE.json config 4, scripts/bench_streaming.py:16-19), f32 recipe, "
+        "the pose polish through pose_gn_kernel: "
         f"fill {n_fill} updates in {fill_s:.3f} s; {p['timed']} timed updates: median "
         + walls_text(walls).removeprefix("median ") + "; per update n_iters/nfev = block/cost "
         "launches " + ", ".join(f"{r[1]['n_iters']}/{r[2]}/{r[3]}" for r in rows)
         + f"; costs " + ", ".join(f"{r[1]['cost']:.1f}" for r in rows)
         + f"; final cost {cost:.1f} <= 1.05 x noise floor {floor_cost:.1f} over {n_obs} "
         f"effective observations (ratio {cost / floor_cost:.4f}); relative extrinsics vs truth: "
-        f"rotation max {rot:.2e} rad, translation max {trans:.4f} mm; profiler "
-        "ba_blocks/ba_cost launches = n_iters/nfev on " + ", ".join(prof_counts)
+        f"rotation max {rot:.2e} rad, translation max {trans:.4f} mm; pose_gn_kernel launches "
+        f"{n_pose} in {p['timed']} timed updates; profiler ba_blocks/ba_cost/pose_gn launches = "
+        "n_iters/nfev/1 on " + ", ".join(prof_counts)
         + "; profiled updates (ms): " + " | ".join(splits))
     log("19 kernels", f"at the window's first timed update, C={p['n_cameras']} F={p['window']} "
         f"N={rig.calib_objpoints.shape[0]}: " + held + "; ms per call wrapper vs twin, kernels "
         "alone (profiler), bound: " + "; ".join(
             f"{k} {a:.4f} vs {b:.4f}, alone {1e3 * dev_ms:.2f} us, bound {kbounds[k][0]:.5f} "
             f"ms ({kbounds[k][1]})" for k, (a, b, dev_ms) in ktimes.items()))
+    pw, pt = times["pose_gn_kernel"]
+    log("19 pose kernel", f"at the first timed update's pose init, C={pC} F={pF} N={pN}: "
+        f"pose_gn_kernel vs twin on {pose['detected']} detected camera-frames, "
+        f"{pose['converged']} converged in the twin, {pose['unstable']} of them unstable (left "
+        f"out of the 1e-9 comparison), {pose['other_branch']} on the other planar branch, "
+        f"max|diff| {pose['max_abs']:.3e} on the rest; ms per call wrapper {pw:.4f} vs twin "
+        f"{pt:.4f}, alone {pose_alone_us:.2f} us (mean of the {pose_recorded} of 10 launches "
+        f"the profiler recorded), bound {bounds['pose_gn_kernel'][0]:.5f} ms "
+        f"({bounds['pose_gn_kernel'][1]}); launches on the main path {n_pose}, one an update")
+    return {"pose_gn_kernel": pose_alone_us}
     log("16 uncertainty window", f"phase 19's window ({p['n_cameras']} cameras x {p['window']} "
         f"frames, S {12 * p['n_cameras']} x {12 * p['n_cameras']}), f64: wall "
         + walls_text(uwalls) + f", warm-up {uwarm:.4f} s, sigma {unc['sigma_px']:.4f} px")
@@ -3227,7 +3372,7 @@ def main():
     bench_rig = uncertainty_phase(torch, dev, analysis)
     triangulation_phase(torch, dev, bench_rig, analysis, port_ba)
     flatibration_phase(torch, dev, analysis)
-    rolling_phase(torch, dev, analysis, errs)
+    alone_us = rolling_phase(torch, dev, analysis, errs, launches, times, bounds)
     keep = tempfile.mkdtemp(prefix="chip_smoke_shard_")
     try:
         videos = video_phase(torch, dev, errs, keep)
@@ -3240,7 +3385,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1],
+         "ms": times[name][0], "plain_ms": times[name][1], "alone_us": alone_us.get(name),
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, replaces) in KERNELS.items()
     ]}), flush=True)

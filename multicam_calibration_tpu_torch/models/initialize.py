@@ -13,8 +13,10 @@ PyTorch, with the JAX names:
   ``lm_core._lm_solve_lanes``), a second one from the fixed-principal-point
   starts when the guard flags any camera.
 - ``estimate_pose`` — batched planar-homography pose extraction, a
-  Gauss-Newton polish of every frame at once (``torch.func.jacfwd`` rows),
-  and the planar twin-pose check.
+  Gauss-Newton polish of every frame at once, and the planar twin-pose
+  check: on CUDA tensors the polish of a slab is one launch of
+  ``pose_gn_kernel`` (``ops.pose_cuda``), on CPU tensors its plain twin
+  (``torch.func.jacfwd`` rows, vmapped over cameras).
 - ``get_camera_spanning_tree`` / ``estimate_all_extrinsics`` /
   ``consensus_calib_poses`` — the maximum spanning tree over co-detections
   (host numpy), pairwise-transform medians chained along it, and the
@@ -41,6 +43,7 @@ import torch
 
 from ..device import resolve_device, with_highest_precision
 from ..ops.homography import fit_homography
+from ..ops.pose_cuda import pose_gn_refine
 from ..ops.projection import distortion_valid_r2, undistort_points
 from ..ops.reductions import masked_median
 from ..ops.rotation import so3_exp, so3_log
@@ -264,7 +267,9 @@ def _refine_poses_gn(poses, cam12, calib_uvs, mask, objpoints, n_iters=10):
 
     All frames refine at once: rows from ``torch.func.jacfwd`` of the
     masked residual (vmapped over frames), a 1e-8 ridge and a Cholesky
-    solve per frame, ``n_iters`` fixed steps.
+    solve per frame, ``n_iters`` fixed steps. This is the plain route, run
+    for CPU tensors (through :func:`_polish_poses`); on CUDA tensors
+    ``ops.pose_cuda.pose_gn_refine`` runs the same steps in one kernel.
     """
     from torch.func import jacfwd, vmap
 
@@ -324,50 +329,79 @@ def _cam12(K, dist):
     ])
 
 
-@with_highest_precision
-def _estimate_pose_impl(calib_uvs, K, dist, objpoints):
-    # Under torch.vmap this body runs once per call, so each span is one
-    # entry per batch of cameras, not one per camera.
-    with metrics.span("estimate_pose.homography"):
-        mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)  # (F,)
-        und = undistort_points(calib_uvs, K, dist)
-        Hs, _ = estimate_board_homographies(und, objpoints, mask)
-        poses0 = poses_from_homographies(Hs, K)
-        poses0 = torch.where(mask[:, None], poses0, 0.0)
-    with metrics.span("estimate_pose.gauss_newton"):
-        cam12 = _cam12(K, dist)
-        point_mask = mask[:, None].expand(calib_uvs.shape[:2])
-        # Polish both branches of the planar-pose ambiguity; keep the better.
-        poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
-        poses_b = _refine_poses_gn(
-            _twin_planar_pose(poses_a), cam12, calib_uvs, point_mask, objpoints
+def _polish_poses(poses0, cam12, calib_uvs, mask, objpoints):
+    """One camera's polish of both branches of the planar-pose ambiguity:
+    (F, 6) homography poses, (12,) camera, (F, N, 2) detections, (F,) mask
+    -> (F, 6), the better branch of each frame, NaN rows where ``mask`` is
+    false. The plain twin of ``pose_gn_kernel``
+    (``ops.pose_cuda.pose_gn_refine_reference`` vmaps it over cameras)."""
+    point_mask = mask[:, None].expand(calib_uvs.shape[:2])
+    poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
+    poses_b = _refine_poses_gn(
+        _twin_planar_pose(poses_a), cam12, calib_uvs, point_mask, objpoints
+    )
+
+    def sq_err(poses):
+        pred = _predict(cam12[None], poses, objpoints)[0]
+        r = torch.where(
+            point_mask[..., None], torch.nan_to_num(calib_uvs) - pred, 0.0
         )
+        return torch.sum(r**2, dim=(-1, -2))
 
-        def sq_err(poses):
-            pred = _predict(cam12[None], poses, objpoints)[0]
-            r = torch.where(
-                point_mask[..., None], torch.nan_to_num(calib_uvs) - pred, 0.0
-            )
-            return torch.sum(r**2, dim=(-1, -2))
-
-        better_b = sq_err(poses_b) < sq_err(poses_a)
-        poses = torch.where(better_b[:, None], poses_b, poses_a)
+    better_b = sq_err(poses_b) < sq_err(poses_a)
+    poses = torch.where(better_b[:, None], poses_b, poses_a)
     return torch.where(mask[:, None], poses, torch.nan)
+
+
+def _planar_start(calib_uvs, K, dist, objpoints):
+    """One camera's (mask (F,), homography poses (F, 6), 0 where the board
+    is not fully detected)."""
+    mask = torch.isfinite(calib_uvs).flatten(-2).all(-1)  # (F,)
+    und = undistort_points(calib_uvs, K, dist)
+    Hs, _ = estimate_board_homographies(und, objpoints, mask)
+    poses0 = poses_from_homographies(Hs, K)
+    return mask, torch.where(mask[:, None], poses0, 0.0)
+
+
+@with_highest_precision
+def _estimate_poses(calib_uvs, K, dist, objpoints):
+    """Board poses of a slab of cameras: (C, F, N, 2) detections, (C, 3, 3)
+    K, (C, D) distortion -> (C, F, 6). The homography stage is a
+    ``torch.vmap`` over cameras; the Gauss-Newton stage is one
+    ``pose_gn_refine`` call on the whole (C, F) batch: one kernel launch on
+    CUDA tensors, the vmapped plain polish on CPU tensors. Each span is one
+    entry per slab."""
+    calib_uvs = calib_uvs.contiguous()
+    with metrics.span("estimate_pose.homography"):
+        mask, poses0 = torch.vmap(_planar_start, in_dims=(0, 0, 0, None))(
+            calib_uvs, K, dist, objpoints)
+    with metrics.span("estimate_pose.gauss_newton"):
+        cam12 = torch.vmap(_cam12)(K, dist)
+        return pose_gn_refine(poses0.contiguous(), cam12.contiguous(), calib_uvs,
+                              mask.contiguous(), objpoints.contiguous())
+
+
+def _estimate_pose_impl(calib_uvs, K, dist, objpoints):
+    """One camera's board poses: (F, N, 2), (3, 3), (D,) -> (F, 6), NaN rows
+    where the board is not fully detected; :func:`_estimate_poses` with C =
+    1."""
+    return _estimate_poses(calib_uvs[None], K[None], dist[None], objpoints)[0]
 
 
 def _batched_estimate_pose(calib_uvs, K, dist, objpoints):
     """Board poses of every camera at once: (C, B, N, 2) detections, (C, 3, 3)
     K and (C, 5) distortion -> (C, B, 6), NaN rows where the board is not
-    fully detected. ``torch.vmap`` of :func:`_estimate_pose_impl` over the
-    camera axis (the JAX package's ``jit(vmap(_estimate_pose_impl))``), so
-    every step runs batched over all cameras instead of once per camera; it
-    equals the per-camera loop. Frames go in slabs of at most
-    ``POSE_BATCH`` camera-frames (each frame's pose is its own)."""
-    pose = torch.vmap(_estimate_pose_impl, in_dims=(0, 0, 0, None))
+    fully detected. The JAX package's ``jit(vmap(_estimate_pose_impl))``:
+    the homography stage is vmapped over cameras, and the Gauss-Newton
+    polish of every camera-frame is one ``ops.pose_cuda.pose_gn_refine``
+    call (one ``pose_gn_kernel`` launch on CUDA tensors; on CPU tensors the
+    plain polish, vmapped over cameras); it equals the per-camera loop.
+    Frames go in slabs of at most ``POSE_BATCH`` camera-frames (each
+    frame's pose is its own), one launch a slab."""
     step = max(1, POSE_BATCH // calib_uvs.shape[0])
     if calib_uvs.shape[1] <= step:
-        return pose(calib_uvs, K, dist, objpoints)
-    return torch.cat([pose(slab, K, dist, objpoints)
+        return _estimate_poses(calib_uvs, K, dist, objpoints)
+    return torch.cat([_estimate_poses(slab, K, dist, objpoints)
                       for slab in calib_uvs.split(step, dim=1)], dim=1)
 
 

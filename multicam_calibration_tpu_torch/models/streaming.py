@@ -7,8 +7,10 @@ window has a fixed capacity and lives on the device. Each
 
 1. initializes the new frames' board poses by planar PnP against the
    current cameras, batched over all cameras
-   (:func:`.initialize._batched_estimate_pose`), and takes their consensus
-   across cameras;
+   (:func:`.initialize._batched_estimate_pose`: the homography stage
+   vmapped over cameras, then the Gauss-Newton polish of both planar
+   twins of every camera-frame in one ``pose_gn_kernel`` launch,
+   ``ops.pose_cuda``), and takes their consensus across cameras;
 2. admits them to the window, evicting the lowest-value keyframes (value =
    sum over camera pairs of 1/pair_coverage, so the rare witnesses of a
    camera pair are protected; recent frames are always protected);
@@ -19,7 +21,9 @@ On the CUDA device an f64 window takes the JAX package's accelerator
 recipe (f32 Jacobians, blocks, per-observation products, cost and Schur
 solve, ``lambda_escalation=3.0``), so every LM iteration builds its blocks
 through ``ba_blocks_kernel`` and every cost evaluation runs
-``ba_cost_kernel``. On the CPU the solve is plain f64, as in JAX.
+``ba_cost_kernel``, and the pose polish of an update is one
+``pose_gn_kernel`` launch in f64. On the CPU the solve is plain f64, as in
+JAX, and the polish its plain twin (``torch.func.jacfwd`` rows, vmapped).
 
 What the JAX version does for the TPU, and where it went here: pose init
 and the consensus run on the calibrator's device (JAX pins them to the CPU

@@ -14,6 +14,27 @@ cost kernel's f64 total against the f64 sum of its own fragments at rtol
 The corner kernel rounds every multiply and add as its twin does, in the
 same order, so the two are compared bit for bit; detection through it is
 compared with the CPU run of the same frames.
+The pose kernel against its twin on the same f64 inputs
+(``_assert_poses_match``, through ``chip_smoke.compare_poses``).
+Undetected frames are NaN in both, and no frame where the twin converged
+(RMS < 5 px, |r| < 2 pi, the criterion of
+tests/test_torch_initialize.py::test_estimate_pose_matches_jax) is NaN in
+the kernel's result. On the converged frames: the same branch of the
+planar ambiguity on at least 99% of them, and, where the branch is the same
+and the twin's own pose is stable (no entry moves by more than 1e-9 +
+1e-9 of itself when the detections or the camera matrix are scaled by 1 +-
+1e-15, or, for card tensors, when the twin runs on the CPU, whose products
+and factors round in other orders), poses at rtol 1e-9 / atol 1e-9; frames
+that are not stable are at most 1% of the converged ones (or one frame).
+Both routes run the same f64 steps, but the kernel sums J^T J by warp
+shuffles, multiplies by reciprocals and contracts products into FMAs where
+the twin's batched products and solves round in their own orders; 10
+Gauss-Newton steps contract that rounding on a converged, stable frame to
+well below 1e-9 (~1e-14 in the CPU emulation), while a chaotic frame
+(the bench rig's 47 camera-frames whose planar Gauss-Newton is chaotic in
+the JAX package too, ``pose_unstable`` in data/bench_ba_ref.npz) may
+legitimately part, and a diverged frame's Cholesky decides NaN on a matrix
+of condition ~1e19, which rounding sways.
 """
 import dataclasses
 import os
@@ -23,9 +44,10 @@ import pytest
 import torch
 
 import multicam_calibration_tpu_torch as mct
+from multicam_calibration_tpu_torch.models import initialize as tinit
 from multicam_calibration_tpu_torch.models import lm_core
 from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
-from multicam_calibration_tpu_torch.ops import ba_cuda, corner_cuda
+from multicam_calibration_tpu_torch.ops import ba_cuda, corner_cuda, pose_cuda
 from multicam_calibration_tpu_torch.ops.rotation import so3_exp
 
 DETECT_FRAMES = os.path.join(
@@ -90,6 +112,61 @@ def _problem(device, n_cameras=3, n_frames=23, seed=4, shift=0.0, pad=0,
     mask = np.concatenate([mask, np.zeros((n_cameras, pad, N), bool)], 1)
     as_t = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
     return as_t(cam), as_t(poses), as_t(obs), as_t(mask), as_t(rig.calib_objpoints)
+
+
+def _pose_problem(device, n_cameras, n_frames, seed, board_shape=(5, 7)):
+    """Inputs of ``pose_gn_refine`` for a synthetic rig whose intrinsics
+    have drifted (fx, fy by ~0.3%, the principal point by ~2 px, k1, k2 by
+    ~1e-3), as mount drift leaves a rolling calibrator's cameras: the
+    homography stage of ``initialize._estimate_poses`` on ``device``.
+    Returns (poses0, cam12, uvs, mask, objpoints)."""
+    rig = mct.make_synthetic_rig(n_cameras=n_cameras, n_frames=n_frames, noise_px=0.3,
+                                 dropout=0.2, seed=seed, board_shape=board_shape)
+    rng = np.random.default_rng(seed + 1)
+    Ks = np.stack([K for K, _ in rig.all_intrinsics])
+    ds = np.stack([d for _, d in rig.all_intrinsics])
+    Ks[:, [0, 1], [0, 1]] *= 1 + rng.normal(0, 3e-3, (n_cameras, 2))
+    Ks[:, :2, 2] += rng.normal(0, 2.0, (n_cameras, 2))
+    ds[:, :2] += rng.normal(0, 1e-3, (n_cameras, 2))
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)  # noqa: E731
+    uvs, K, dist, objp = as_t(rig.all_calib_uvs), as_t(Ks), as_t(ds), as_t(rig.calib_objpoints)
+    mask, poses0 = torch.vmap(tinit._planar_start, in_dims=(0, 0, 0, None))(uvs, K, dist, objp)
+    cam12 = torch.vmap(tinit._cam12)(K, dist)
+    return poses0.contiguous(), cam12.contiguous(), uvs, mask.contiguous(), objp
+
+
+def _singular_problem(device):
+    """One camera, a frame whose Gauss-Newton normal matrix is singular in
+    floating point and a frame with no detections. The four board points
+    sit at the origin and the pose puts them at (512, 0, 512): x = 1 and y
+    = 0 exactly, so the t_z column of J is minus the t_x column, the
+    rotation columns are 0, and with fx / z = 2^20 every product is a power
+    of two: J^T J + 1e-8 I rounds to a matrix whose sixth Cholesky pivot is
+    exactly 0 (the ridge is below half an ulp of 2^42)."""
+    cam12 = torch.zeros((1, 12), dtype=torch.float64)
+    cam12[0, :4] = torch.tensor([2.0**29, 2.0**29, 640.0, 512.0])
+    poses0 = torch.zeros((1, 2, 6), dtype=torch.float64)
+    poses0[0, 0, 3:] = torch.tensor([512.0, 0.0, 512.0])
+    uvs = torch.full((1, 2, 4, 2), float("nan"), dtype=torch.float64)
+    uvs[0, 0] = torch.tensor([640.0 + 2.0**29 + 0.5, 511.75], dtype=torch.float64)
+    mask = torch.tensor([[True, False]])
+    objp = torch.zeros((4, 3), dtype=torch.float64)
+    return tuple(x.to(device) for x in (poses0, cam12, uvs, mask, objp))
+
+
+def _assert_poses_match(got, args, min_converged=0.9):
+    """``pose_gn_refine``'s result ``got`` (C, F, 6) against its twin on the
+    same inputs ``args``, at the tolerances of the module docstring
+    (``chip_smoke.compare_poses``, which phase 19 of chip_smoke.py applies to
+    a rolling update's own inputs). Prints what it counted; returns the
+    masks (C, F) of the frames where the twin converged and of those where
+    it kept branch B."""
+    import chip_smoke
+
+    counts = chip_smoke.compare_poses(torch, got, args, min_converged)
+    print("pose kernel vs twin, camera-frames:", {
+        k: v for k, v in counts.items() if k not in ("converged_mask", "kept_b")})
+    return counts["converged_mask"], counts["kept_b"]
 
 
 def _assert_cost_close(got, ref):
@@ -549,3 +626,79 @@ def test_rolling_update_on_card_launches_both_kernels(device, monkeypatch):
         assert ba_cuda.ba_chunk_cost.launches - before[1] == solve["nfev"]
         assert np.isfinite(info["cost"])
     assert cal.occupancy == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rolling", "calibrate_slab", "board_7x10"])
+def test_pose_kernel_matches_twin(device, case):
+    """pose_gn_kernel against its twin at the rolling update's slab (64
+    cameras x 8 frames x 35 points), at a calibrate slab (16 x 1,024) and
+    on the detector's default 7 x 10 board (70 points, 3 a lane for the
+    first 6 lanes; 64 x 8): one launch each."""
+    C, F, seed, board = {"rolling": (64, 8, 31, (5, 7)), "calibrate_slab": (16, 1024, 32, (5, 7)),
+                         "board_7x10": (64, 8, 35, (7, 10))}[case]
+    args = _pose_problem(device, C, F, seed=seed, board_shape=board)
+    assert args[4].shape[0] == board[0] * board[1]
+    before = pose_cuda.pose_gn_refine.launches
+    got = pose_cuda.pose_gn_refine(*args)
+    assert pose_cuda.pose_gn_refine.launches == before + 1
+    assert got.shape == (C, F, 6) and got.device == args[0].device
+    _assert_poses_match(got, args)
+    again = pose_cuda.pose_gn_refine(*args)  # no float atomics: the same bits
+    assert torch.equal(again.isnan(), got.isnan())
+    assert torch.equal(again.nan_to_num(), got.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_pose_kernel_on_a_singular_frame(device):
+    """A frame whose normal matrix is not positive definite comes out NaN, as
+    the twin's Cholesky makes it; an undetected frame is NaN."""
+    args = _singular_problem(device)
+    got = pose_cuda.pose_gn_refine(*args)
+    ref = pose_cuda.pose_gn_refine_reference(*args)
+    assert bool(ref.isnan().all()) and bool(got.isnan().all())
+
+
+@pytest.mark.cuda
+def test_pose_stage_launches_once_per_slab(device, monkeypatch):
+    """_batched_estimate_pose on the card: one pose_gn_kernel launch per
+    slab of POSE_BATCH camera-frames, the counter estimate_pose.gn_kernel.frames
+    raised by the slab's camera-frames, and each slab's poses those of the
+    twin on the slab's inputs."""
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    rig = mct.make_synthetic_rig(n_cameras=8, n_frames=24, noise_px=0.3, dropout=0.2, seed=33)
+    uvs = torch.as_tensor(rig.all_calib_uvs, device=device)
+    K = torch.as_tensor(np.stack([k for k, _ in rig.all_intrinsics]), device=device)
+    dist = torch.as_tensor(np.stack([d for _, d in rig.all_intrinsics]), device=device)
+    objp = torch.as_tensor(rig.calib_objpoints, device=device)
+    slabs = []
+    real = tinit.pose_gn_refine
+    monkeypatch.setattr(tinit, "pose_gn_refine",
+                        lambda *a: slabs.append((a, real(*a))) or slabs[-1][1])
+    monkeypatch.setattr(tinit, "POSE_BATCH", 8 * 10)  # slabs of 10, 10 and 4 frames
+    before = (pose_cuda.pose_gn_refine.launches,
+              metrics.stage_times.get(pose_cuda.COUNTER, 0))
+    got = tinit._batched_estimate_pose(uvs, K, dist, objp)
+    assert pose_cuda.pose_gn_refine.launches == before[0] + 3
+    assert metrics.stage_times[pose_cuda.COUNTER] == before[1] + 8 * 24
+    assert [a[2].shape[1] for a, _ in slabs] == [10, 10, 4]
+    assert torch.equal(got.isnan(), torch.cat([out for _, out in slabs], 1).isnan())
+    for args, out in slabs:
+        _assert_poses_match(out, args)
+
+
+@pytest.mark.cuda
+def test_pose_wrapper_takes_only_what_the_kernel_reads(device):
+    args = _pose_problem(device, 2, 3, seed=34)
+    bad = {
+        "float32 uvs": (args[0], args[1], args[2].float(), args[3], args[4]),
+        "float mask": (*args[:3], args[3].double(), args[4]),
+        "strided poses": (args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:]),
+        "cpu cameras": (args[0], args[1].cpu(), *args[2:]),
+        "no points": (*args[:2], torch.zeros((2, 3, 0, 2), dtype=torch.float64, device=device),
+                      args[3], torch.zeros((0, 3), dtype=torch.float64, device=device)),
+    }
+    for bad_args in bad.values():
+        with pytest.raises(ValueError):
+            pose_cuda.pose_gn_refine(*bad_args)
