@@ -471,8 +471,10 @@ def _intrinsics_from_sample(uvs, take, objpoints, image_size, opts):
     n_samples = uvs.shape[0]
     dev = uvs.device
     mask_f = torch.arange(n_samples, device=dev) < take
-    Hs, _ = estimate_board_homographies(uvs, objpoints, mask_f)
-    K0 = intrinsics_from_homographies(Hs, mask_f)
+    with metrics.span("calibrate.intrinsics.zhang"):
+        Hs, _ = estimate_board_homographies(uvs, objpoints, mask_f)
+        K0 = intrinsics_from_homographies(Hs, mask_f)
+        K0_pp = intrinsics_from_homographies_fixed_pp(Hs, mask_f, image_size)
 
     # Refine (fx, fy, cx, cy, k1, k2) + poses jointly with the BA engine:
     # a single-camera bundle adjustment with the extrinsics frozen at
@@ -488,17 +490,18 @@ def _intrinsics_from_sample(uvs, take, objpoints, image_size, opts):
             torch.zeros(8, dtype=_F64, device=dev),
         ])[None]
         poses0 = poses_from_homographies(Hs, K_init)
-        cam_ref, _, info = lm_solve(
-            cam0, poses0, obs, point_mask, objpoints, opts, cam_free=cam_free
-        )
-        return _host(cam_ref), np.array([float(info["final_cost"])])
+        with metrics.span("calibrate.intrinsics.refine"):
+            cam_ref, _, info = lm_solve(
+                cam0, poses0, obs, point_mask, objpoints, opts, cam_free=cam_free
+            )
+            metrics.count("calibrate.intrinsics.lm_iters", int(info["n_iters"]))
+            return _host(cam_ref), np.array([float(info["final_cost"])])
 
     cam_ref, cost = refine(K0)
 
     # Basin guard: when the fixed-principal-point focal estimate materially
     # disagrees with the IAC one, refine from it too and keep the better
     # field-valid solution.
-    K0_pp = intrinsics_from_homographies_fixed_pp(Hs, mask_f, image_size)
     size = np.asarray(image_size, float)[None]
     flagged = _basin_guard(_host(K0)[None], _host(K0_pp)[None], size)
     if flagged[0]:
@@ -616,6 +619,7 @@ def _batched_intrinsics_refine(K_inits, Hs, uvs_s, mask_f, objpoints, opts):
                           torch.zeros(6, dtype=dtype, device=dev)])[None]
     cam_ref, _, info = _lm_solve_lanes(cam0, poses0, obs, point_mask, objpoints, opts,
                                        cam_free=cam_free)
+    metrics.count("calibrate.intrinsics.lm_iters", int(info["n_iters"].max()))
     return cam_ref[:, 0], info["final_cost"]
 
 
@@ -657,13 +661,16 @@ def get_intrinsics_batch(
     sizes_np = np.asarray(img_sizes, dtype=float)
     opts = _intrinsics_opts(lm_options)
 
-    Hs, K0, K0_pp = _batched_zhang_init(uvs_s, mask_f, objpoints, _t(sizes_np, dev))
-    cam_ref, cost = (_host(x) for x in _batched_intrinsics_refine(
-        K0, Hs, uvs_s, mask_f, objpoints, opts))
+    with metrics.span("calibrate.intrinsics.zhang"):
+        Hs, K0, K0_pp = _batched_zhang_init(uvs_s, mask_f, objpoints, _t(sizes_np, dev))
+    with metrics.span("calibrate.intrinsics.refine"):
+        cam_ref, cost = (_host(x) for x in _batched_intrinsics_refine(
+            K0, Hs, uvs_s, mask_f, objpoints, opts))
     flagged = _basin_guard(_host(K0), _host(K0_pp), sizes_np)
     if flagged.any():
-        cam_alt, cost_alt = (_host(x) for x in _batched_intrinsics_refine(
-            K0_pp, Hs, uvs_s, mask_f, objpoints, opts))
+        with metrics.span("calibrate.intrinsics.refine"):
+            cam_alt, cost_alt = (_host(x) for x in _batched_intrinsics_refine(
+                K0_pp, Hs, uvs_s, mask_f, objpoints, opts))
         cam_ref = _keep_alt(cam_ref, cost, cam_alt, cost_alt, flagged, sizes_np)
     return _intrinsics_out(cam_ref)
 
@@ -724,15 +731,17 @@ def estimate_all_extrinsics(all_calib_poses, root=0, device=None):
     dev = _pick(device, all_calib_poses)
     poses = _host(all_calib_poses)
     n = poses.shape[0]
-    tree = get_camera_spanning_tree(poses, root=root)
-    T = [None] * n
-    T[root] = np.eye(4)
-    for c1, c2 in tree:
-        t_rel = estimate_pairwise_camera_transform(poses[c1], poses[c2], device=dev)
-        T[c2] = _host(get_transformation_matrix(t_rel)) @ T[c1]
-    all_extrinsics = np.stack(
-        [_host(get_transformation_vector(_t(t, dev))) for t in T]
-    )
+    with metrics.span("calibrate.extrinsics.tree"):
+        tree = get_camera_spanning_tree(poses, root=root)
+    with metrics.span("calibrate.extrinsics.chain"):
+        T = [None] * n
+        T[root] = np.eye(4)
+        for c1, c2 in tree:
+            t_rel = estimate_pairwise_camera_transform(poses[c1], poses[c2], device=dev)
+            T[c2] = _host(get_transformation_matrix(t_rel)) @ T[c1]
+        all_extrinsics = np.stack(
+            [_host(get_transformation_vector(_t(t, dev))) for t in T]
+        )
     return all_extrinsics, tree
 
 
@@ -749,6 +758,26 @@ def consensus_calib_poses(all_calib_poses, all_extrinsics, device=None):
         T_w2c_inv = se3_inverse(get_transformation_matrix(ext))[:, None]
         t_b2w = get_transformation_vector(T_w2c_inv @ T_b2c)  # (C, F, 6)
         return masked_median(t_b2w, detected[..., None], axis=0)
+
+
+def _reanchor_extrinsics(all_calib_poses, consensus_poses, all_extrinsics, root, device):
+    """Every camera but ``root`` anchored to the rig's consensus board poses:
+    its extrinsics the element-wise masked median, over the frames it shares
+    with the consensus, of its own world -> camera transforms (as the repair
+    anchors a re-solved camera), in place of the chain of pairwise medians
+    along the spanning tree, which hands a poorly initialised camera's error
+    to every camera below it in the tree. A camera that shares no frame with
+    the consensus keeps ``all_extrinsics``' row. Returns (C, 6) numpy."""
+    poses = _t(all_calib_poses, device)  # (C, F, 6)
+    cons = _t(consensus_poses, device)  # (F, 6)
+    common = torch.isfinite(poses).all(-1) & torch.isfinite(cons).all(-1)  # (C, F)
+    T_w2c = get_transformation_matrix(torch.nan_to_num(poses)) @ se3_inverse(
+        get_transformation_matrix(torch.nan_to_num(cons)))
+    ext = _host(masked_median(get_transformation_vector(T_w2c), common[..., None], axis=1))
+    given = np.asarray(all_extrinsics, dtype=float)
+    ext = np.where(np.isfinite(ext), ext, given)
+    ext[root] = given[root]
+    return ext
 
 
 def _median_reproj_err(calib_uvs, poses, K, dist, objpoints, device):
@@ -783,6 +812,25 @@ def _rig_consistent_err(calib_uvs, extrinsic6, K, dist, consensus_poses,
     return _median_reproj_err(calib_uvs, poses, K, dist, objpoints, device)
 
 
+def _resect_camera(calib_uvs, extrinsic6, K, dist, consensus_poses, objpoints, device):
+    """One camera's 12 parameters fitted to its detections, from (K, dist,
+    extrinsic6) with the intrinsics' LM options, the board poses held at
+    the rig's consensus (world) poses: a resection, which the other
+    cameras' poses make well posed where the camera's own single-camera
+    fit settled on a compensating distortion. Returns ((K, dist),
+    extrinsic6) as numpy."""
+    uvs = _t(calib_uvs, device)  # (F, N, 2)
+    cons = _t(consensus_poses, device)  # (F, 6)
+    mask = torch.isfinite(uvs).all(-1) & torch.isfinite(cons).all(-1)[:, None]
+    cam0 = torch.cat([_cam12(_t(K, device), _t(dist, device).reshape(-1))[:6],
+                      _t(extrinsic6, device)])[None]
+    cam, _, _ = lm_solve(cam0, torch.nan_to_num(cons), torch.nan_to_num(uvs)[None], mask[None],
+                         _t(objpoints, device), _intrinsics_opts(None),
+                         cam_free=torch.ones_like(cam0), pose_free=torch.zeros_like(cons))
+    cam = _host(cam)
+    return _intrinsics_out(cam)[0], cam[0, 6:]
+
+
 def _repair_bad_intrinsics(
     all_calib_uvs,
     img_sizes,
@@ -794,17 +842,22 @@ def _repair_bad_intrinsics(
     n_samples,
     verbose,
     device,
+    resect=False,
 ):
     """Peer-relative init repair (in place on the intrinsics/poses lists).
 
     Flag cameras whose rig-consistent median error is an outlier against
     the rig median, refit them from fresh frame samples, and keep a
     candidate only if it measurably improves that camera under the same
-    consensus poses. Returns True if anything changed (the caller re-runs
-    the extrinsics tree + consensus). Needs >= 4 cameras.
+    consensus poses. With ``resect`` a flagged camera is first resected
+    against the consensus poses (:func:`_resect_camera`), and refit from
+    samples only where that leaves it an outlier. Returns True if anything
+    changed (the caller re-runs the extrinsics tree + consensus). Needs >= 4
+    cameras.
     """
     n_cameras = len(all_intrinsics)
     if n_cameras < 4:
+        metrics.count("calibrate.repair.cameras", 0)
         return False
     errs = np.array([
         _rig_consistent_err(
@@ -816,10 +869,25 @@ def _repair_bad_intrinsics(
     peer = float(np.nanmedian(errs))
     thresh = max(3.0 * peer, 2.0)
     bad = ~np.isfinite(errs) | (errs > thresh)
+    metrics.count("calibrate.repair.cameras", int(bad.sum()))
     changed = False
     for c in np.nonzero(bad)[0]:
         best_err = errs[c]
-        for seed, ns in ((9973, n_samples), (31337, 2 * n_samples)):
+        samples = ((9973, n_samples), (31337, 2 * n_samples))
+        if resect:
+            cand, ext_c = _resect_camera(all_calib_uvs[c], all_extrinsics[c], *all_intrinsics[c],
+                                         consensus_poses, calib_objpoints, device)
+            e = _rig_consistent_err(all_calib_uvs[c], ext_c, cand[0], cand[1], consensus_poses,
+                                    calib_objpoints, device)
+            if np.isfinite(e) and e < best_err:
+                all_intrinsics[c] = cand
+                all_calib_poses[c] = _host(
+                    estimate_pose(all_calib_uvs[c], calib_objpoints, *cand, device=device))
+                best_err = e
+                changed = True
+                if best_err <= thresh:
+                    samples = ()
+        for seed, ns in samples:
             try:
                 cand = get_intrinsics(
                     all_calib_uvs[c], calib_objpoints, img_sizes[c],
@@ -869,18 +937,38 @@ def calibrate(
     verbose=True,
     n_samples_for_intrinsics=100,
     device=None,
+    reanchor=False,
 ):
     """Full initialization pipeline, with the JAX signature and returns:
     (all_extrinsics (C, 6) numpy, all_intrinsics list of (K, dist),
     consensus poses (F, 6) numpy, spanning_tree).
 
-    Spans (``utils.metrics``): ``calibrate.intrinsics``,
-    ``calibrate.poses``, ``calibrate.extrinsics``, ``calibrate.consensus``,
-    ``calibrate.repair``. As in the JAX package, uniform (C, F, N, 2)
-    detections take the camera-batched entry points
-    (``get_intrinsics_batch``, ``estimate_pose_batch``) on an accelerator
-    (here a CUDA device, :func:`_batched_route`), where per-camera dispatch
-    dominates; on the CPU each camera is solved on its own.
+    Spans (``utils.metrics``): ``calibrate.intrinsics`` (with
+    ``calibrate.intrinsics.zhang`` / ``.refine`` inside, which the repair's
+    re-solves open too), ``calibrate.poses``, ``calibrate.extrinsics`` (with
+    ``calibrate.extrinsics.tree`` / ``.chain``), ``calibrate.consensus``,
+    ``calibrate.repair``; counters ``calibrate.intrinsics.lm_iters`` (the LM
+    iterations the host drives: a lockstep refine counts its slowest
+    camera's) and ``calibrate.repair.cameras`` (cameras the repair
+    re-solves). As in the JAX package, uniform (C, F, N, 2) detections take
+    the camera-batched entry points (``get_intrinsics_batch``,
+    ``estimate_pose_batch``) on an accelerator (here a CUDA device,
+    :func:`_batched_route`), where per-camera dispatch dominates; on the CPU
+    each camera is solved on its own.
+
+    ``reanchor`` (a port-side option, off by default; the JAX package
+    chains along the tree): after the consensus, and again after a repair,
+    every camera but the root takes its extrinsics from its own board poses
+    against the consensus poses (:func:`_reanchor_extrinsics`), and the
+    consensus is taken once more (span ``calibrate.reanchor``); and the
+    repair resects a flagged camera against the consensus poses before it
+    resamples. On a 64-camera stage the tree can hang several cameras below
+    one whose intrinsics came out poorly (a compensating-distortion fit);
+    chained, they inherit its error (40-57 mm, 14-44 px), the repair then
+    re-solves their intrinsics for nothing, and ``bundle_adjust``'s outlier
+    rule, on each frame's worst camera, drops nearly every frame; the poor
+    camera itself, refit from fresh samples, can stay ~10 px and 0.4 rad
+    off, and ``bundle_adjust`` leaves it in that basin.
     """
     dev = _pick(device, all_calib_uvs)
     n_cameras = len(all_calib_uvs)
@@ -932,6 +1020,16 @@ def calibrate(
     with metrics.span("calibrate.consensus"):
         calib_poses = _host(consensus_calib_poses(all_calib_poses, all_extrinsics,
                                                   device=dev))
+
+    def anchored(all_extrinsics, calib_poses):
+        if not reanchor:
+            return all_extrinsics, calib_poses
+        with metrics.span("calibrate.reanchor"):
+            ext = _reanchor_extrinsics(all_calib_poses, calib_poses, all_extrinsics, root,
+                                       dev)
+            return ext, _host(consensus_calib_poses(all_calib_poses, ext, device=dev))
+
+    all_extrinsics, calib_poses = anchored(all_extrinsics, calib_poses)
     # Rig-consistency check + single-camera init repair (needs the
     # consensus poses). On repair, re-anchor the tree and consensus once.
     with metrics.span("calibrate.repair"):
@@ -939,7 +1037,7 @@ def calibrate(
         if _repair_bad_intrinsics(
             all_calib_uvs, img_sizes, calib_objpoints, all_intrinsics,
             all_calib_poses, all_extrinsics, calib_poses,
-            n_samples_for_intrinsics, verbose, dev,
+            n_samples_for_intrinsics, verbose, dev, resect=reanchor,
         ):
             all_extrinsics, spanning_tree = estimate_all_extrinsics(
                 all_calib_poses, root=root, device=dev
@@ -947,4 +1045,5 @@ def calibrate(
             calib_poses = _host(consensus_calib_poses(
                 all_calib_poses, all_extrinsics, device=dev
             ))
+            all_extrinsics, calib_poses = anchored(all_extrinsics, calib_poses)
     return all_extrinsics, all_intrinsics, calib_poses, spanning_tree

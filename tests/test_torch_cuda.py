@@ -702,3 +702,22 @@ def test_pose_wrapper_takes_only_what_the_kernel_reads(device):
     for bad_args in bad.values():
         with pytest.raises(ValueError):
             pose_cuda.pose_gn_refine(*bad_args)
+
+
+BENCH_CELLS = ("rig6.detect_mixed", "stage64.rolling", "stage64.ba", "stage64.calib")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", BENCH_CELLS)
+def test_benchmark_cell_is_correct_on_card(device, cell):
+    """A sound run of each benchmark cell at its tiny size on the card: the
+    route the CPU suite cannot take (the float32 recipe through both BA
+    kernels, ``pose_gn_kernel``, the camera-batched ``calibrate``) is held
+    to the cell's own reference and limits."""
+    from perfbench.harness import core
+    from perfbench.tests.test_perfbench_calib import TINY_CALIB
+    from perfbench.tests.tiny import tiny
+
+    overrides = TINY_CALIB if cell == "stage64.calib" else tiny(cell)
+    r = core.run_cell(cell, 2**31 + 4321, 0.5, 0, device, overrides=overrides)
+    assert r["correct"] is True, r["checks"]
