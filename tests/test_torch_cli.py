@@ -134,7 +134,7 @@ def test_version_reads_a_git_worktree(tmp_path):
     main, wt = tmp_path / "main", tmp_path / "wt"
     main.mkdir()
     run = lambda *a, cwd=main: subprocess.run(["git", *a], cwd=cwd, env=env, check=True,  # noqa: E731
-                                              capture_output=True, text=True).stdout
+                                              capture_output=True, text=True, timeout=60).stdout
     run("init", "-q")
     (main / "README").write_text("x\n")
     run("add", "README")
