@@ -144,7 +144,7 @@ line each:
    start and timed at (64, 256, 35), the final cost at most 1.05 x the
    noise floor over the effective mask ``msk & active``, relative rotations
    within 0.02 rad of the truth; ``pose_gn_kernel`` launched once an update
-   (``pose_gn_refine.launches`` over the timed updates, and 1 under the
+   (``pose_gn_kernel.launches`` over the timed updates, and 1 under the
    profiler), and held to its twin on the first timed update's own inputs
    (the homography stage's poses, cameras, detections and mask at 64 x 8
    x 35; ``compare_poses``, the card tests' tolerances), timed (wrapper
@@ -395,6 +395,29 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
+def launched(kernel):
+    """``kernel``'s launches counted so far: the ``utils.metrics`` counter
+    ``<kernel>.launches``, raised by one a wrapper call."""
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    return metrics.stage_times.get(f"{kernel}.launches", 0)
+
+
+def zero_launches(*kernels):
+    """Count the launches of ``kernels`` from 0 again."""
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    for kernel in kernels:
+        metrics.stage_times[f"{kernel}.launches"] = 0
+
+
+def uploaded_bytes():
+    """The bytes detection has copied to a card so far (``detect.upload_bytes``)."""
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    return metrics.stage_times.get("detect.upload_bytes", 0)
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
     the operations over their peak rate; ``ops`` is [(count, flop/s), ...]."""
@@ -458,7 +481,6 @@ def compare_poses(torch, got, args, min_converged=0.9):
     differ)."""
     from multicam_calibration_tpu_torch.models import initialize as tinit
     from multicam_calibration_tpu_torch.models import lm_core
-    from multicam_calibration_tpu_torch.ops import pose_cuda
 
     def branches(p0, cam, u, m, o):  # the twin's branch A and branch B
         pm = m[:, None].expand(u.shape[:2])
@@ -471,12 +493,12 @@ def compare_poses(torch, got, args, min_converged=0.9):
                   else args[k] * scale)
         return out
 
-    ref = pose_cuda.pose_gn_refine_reference(*args)
+    ref = tinit.pose_gn_refine_reference(*args)
     pa, pb = torch.vmap(branches, in_dims=(0, 0, 0, 0, None))(*args)
-    others = [pose_cuda.pose_gn_refine_reference(*nudged(k, 1 + e)).cpu().numpy()
+    others = [tinit.pose_gn_refine_reference(*nudged(k, 1 + e)).cpu().numpy()
               for k in (1, 2) for e in (1e-15, -1e-15)]
     if args[0].device.type != "cpu":  # the twin's other sum order: the CPU's
-        others.append(pose_cuda.pose_gn_refine_reference(*(x.cpu() for x in args)).numpy())
+        others.append(tinit.pose_gn_refine_reference(*(x.cpu() for x in args)).numpy())
     got, ref, pa, pb = (x.cpu().numpy() for x in (got, ref, pa, pb))
     cam12, uvs, objp = args[1].cpu(), args[2].cpu().numpy(), args[4].cpu()
     detected = args[3].cpu().numpy()
@@ -766,9 +788,9 @@ def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
 
     # 8. detection against the JAX package's stored answers
     def detect(images):
-        before = cc.corner_response_peaks.launches
+        before = launched("corner_peaks_kernel")
         out = mct.detect_chessboard_batch(list(images), board_shape=board, device=dev)
-        return out, cc.corner_response_peaks.launches - before
+        return out, launched("corner_peaks_kernel") - before
 
     got, n_all = detect(frames)
     acc = np.nonzero(d["accepted"])[0]
@@ -794,8 +816,7 @@ def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
     # seeded +-2 noise (scripts/bench_detection.py:176-188), fresh per call
     batches, gt = noisy_batches(d, TIMED_CALLS + 1, seed=7)
     detect(batches[0])  # warm-up
-    cc.corner_response_peaks.launches = 0
-    cc.corner_response_fused.launches = 0
+    zero_launches("corner_peaks_kernel", "corner_response_kernel")
     walls, n_launch, n_det, sq = [], [], 0, []
     for b in batches[1:]:
         torch.cuda.synchronize()
@@ -810,8 +831,8 @@ def detect_phases(torch, dev, corner_build, launches, errs, times, bounds):
     torch.cuda.synchronize()
     check(tuple(resp.shape) == (BATCH,) + frames.shape[1:] and bool(resp.isfinite().all()),
           "corner_response: bad output")
-    launches["corner_peaks_kernel"] = cc.corner_response_peaks.launches
-    launches["corner_response_kernel"] = cc.corner_response_fused.launches
+    launches["corner_peaks_kernel"] = launched("corner_peaks_kernel")
+    launches["corner_response_kernel"] = launched("corner_response_kernel")
     rate = n_det / (BATCH * TIMED_CALLS)
     rms = float(np.sqrt(np.concatenate(sq).mean())) if sq else float("inf")
     fps = [BATCH / w for w in walls]
@@ -1023,9 +1044,9 @@ def hold_kernels_at(torch, start, opts, errs):
     out = []
     for what, args in shapes.items():
         err, scaled = compare_blocks(ba_cuda.ba_chunk_blocks(*args, **kw),
-                                     ba_cuda.ba_chunk_blocks_reference(*args, **kw))
+                                     lm_core.ba_chunk_blocks_reference(*args, **kw))
         cerr, trel = compare_cost(ba_cuda.ba_chunk_cost(*args, **kw),
-                                  ba_cuda.ba_chunk_cost_reference(*args, **kw),
+                                  lm_core.ba_chunk_cost_reference(*args, **kw),
                                   ba_cuda.ba_chunk_cost(*args, **kw))
         errs["ba_blocks_kernel"] = max(errs["ba_blocks_kernel"], err)
         errs["ba_cost_kernel"] = max(errs["ba_cost_kernel"], cerr)
@@ -1043,7 +1064,6 @@ def bundle_adjust_phase(torch, dev, cal, errs):
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.models import bundle_adjustment, lm_core
     from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
-    from multicam_calibration_tpu_torch.ops import ba_cuda
     from multicam_calibration_tpu_torch.utils.metrics import metrics
 
     rig, (ext, intr, poses, _) = cal
@@ -1077,13 +1097,13 @@ def bundle_adjust_phase(torch, dev, cal, errs):
         solves it ran account for, RMSE < BA_RMSE_PX, and its f64 cost at
         most JAX's point's on its frames x (1 + BA_COST_RTOL)."""
         solves.clear()
-        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
         s_ext, s_intr, s_poses = start
         (a_ext, a_intr, a_poses, uf, info), wall = timed(torch, lambda: mct.bundle_adjust(
             rig.all_calib_uvs, s_ext, s_intr, rig.calib_objpoints, s_poses, verbose=False,
             device=dev, **kw))
-        nb = ba_cuda.ba_chunk_blocks.launches - before[0]
-        nc = ba_cuda.ba_chunk_cost.launches - before[1]
+        nb = launched("ba_blocks_kernel") - before[0]
+        nc = launched("ba_cost_kernel") - before[1]
         eb = ec = 0
         for k, (_, o, sinfo) in enumerate(solves):
             if lm_core._cuda_block_build(o, torch.float64, objp):
@@ -1131,9 +1151,9 @@ def bundle_adjust_phase(torch, dev, cal, errs):
         port_start = (ext, intr, poses)
         run(port_start)  # warm-up
         # The main path: counts from 0, read just after.
-        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        zero_launches("ba_blocks_kernel", "ba_cost_kernel")
         main = run(port_start)
-        check(ba_cuda.ba_chunk_blocks.launches > 0 and ba_cuda.ba_chunk_cost.launches > 0,
+        check(launched("ba_blocks_kernel") > 0 and launched("ba_cost_kernel") > 0,
               "bundle_adjust did not launch both BA kernels")
         held = hold_kernels_at(torch, main.start, main.opts, errs)
         ratios = selection_ratios(torch, dev, rig, *jax_start)
@@ -1230,7 +1250,6 @@ def lowband_phase(torch, dev, errs):
     bound)}} of the corner kernel at its shapes."""
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.detection import detector
-    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
 
     d = np.load(os.path.join(DATA, "detect_frames.npz"))
     low = np.load(os.path.join(DATA, "detect_lowband.npz"))
@@ -1251,11 +1270,11 @@ def lowband_phase(torch, dev, errs):
             "relaunch); " + "; ".join(msg))
 
     def detect(images, f):
-        before = (cc.corner_response_peaks.launches, detector._upload.nbytes)
+        before = (launched("corner_peaks_kernel"), uploaded_bytes())
         out, wall = timed(torch, lambda: mct.detect_chessboard_batch(
             list(images), board_shape=board, coarse_downscale=f, device=dev))
-        return (out, wall, cc.corner_response_peaks.launches - before[0],
-                detector._upload.nbytes - before[1])
+        return (out, wall, launched("corner_peaks_kernel") - before[0],
+                uploaded_bytes() - before[1])
 
     for f in LOWBAND_F:
         got = detect(d["frames"], f)[0]
@@ -1267,7 +1286,7 @@ def lowband_phase(torch, dev, errs):
     for f in (1,) + LOWBAND_F:
         detect(batches[0], f)  # warm-up
     res = {f: [] for f in (1,) + LOWBAND_F}
-    cc.corner_response_peaks.launches = 0  # the low-band main path, read after the loop
+    zero_launches("corner_peaks_kernel")  # the low-band main path, read after the loop
     for r, b in enumerate(batches[1:]):
         order = ((1,) + LOWBAND_F)[r % 3:] + ((1,) + LOWBAND_F)[: r % 3]
         for f in order:
@@ -1339,7 +1358,6 @@ def device_overlap(torch, prof):
 def streaming_phase(torch, dev):
     """Phase 13: streamed batches against sequential calls."""
     import multicam_calibration_tpu_torch as mct
-    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
 
     d = np.load(os.path.join(DATA, "detect_frames.npz"))
     board = tuple(int(v) for v in d["board_shape"])
@@ -1356,9 +1374,9 @@ def streaming_phase(torch, dev):
                                             device=dev) if len(b) else {} for b in batches]
 
     for f in (1, 2):
-        cc.corner_response_peaks.launches = 0  # the streamed main path, read just after
+        zero_launches("corner_peaks_kernel")  # the streamed main path, read just after
         got = streamed(f)
-        check(cc.corner_response_peaks.launches > 0, "streaming did not launch the corner kernel")
+        check(launched("corner_peaks_kernel") > 0, "streaming did not launch the corner kernel")
         want = sequential(f)
         check(len(got) == len(batches) and got[EMPTY_AT] == {}, f"f={f}: not one dict per batch")
         for k, (g, w) in enumerate(zip(got, want)):
@@ -1411,7 +1429,6 @@ def scale_phase(torch, dev, errs):
     (ms, twin ms, bound)}} of the corner kernel at its shapes."""
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.detection import detector
-    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
 
     d = np.load(os.path.join(DATA, "detect_frames.npz"))
     low = np.load(os.path.join(DATA, "detect_lowband.npz"))
@@ -1432,7 +1449,7 @@ def scale_phase(torch, dev, errs):
         corner_shape_text(shape, 4, rows) for shape, rows in kernel_times.items()))
     for s in SCALES:
         key = f"scale{int(round(100 * s)):03d}"
-        cc.corner_response_peaks.launches = 0  # the scale_factor main path, read just after
+        zero_launches("corner_peaks_kernel")  # the scale_factor main path, read just after
         walls, out = [], {}
         for i, fr in enumerate(frames):
             r, w = timed(torch, lambda: mct.detect_chessboard(fr, board_shape=board, scale_factor=s,
@@ -1440,7 +1457,7 @@ def scale_phase(torch, dev, errs):
             walls.append(w)
             if r is not None:
                 out[i] = r
-        n = cc.corner_response_peaks.launches
+        n = launched("corner_peaks_kernel")
         check(n >= len(frames), f"scale {s}: {n} corner-kernel launches for {len(frames)} frames")
         du = same_as_stored(out, low[f"{key}_accepted"], low[f"{key}_uvs"], low[f"{key}_scores"],
                             f"scale_factor {s}")
@@ -1706,7 +1723,7 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
     import multicam_calibration_tpu_torch as mct
     from multicam_calibration_tpu_torch.convert import lm_options_from_jax
     from multicam_calibration_tpu_torch.models import initialize, lm_core, streaming
-    from multicam_calibration_tpu_torch.ops import ba_cuda, pose_cuda
+    from multicam_calibration_tpu_torch.ops import ba_cuda
 
     solves = []  # (start arrays, options, info) of every lm_solve of an update
     polishes = []  # the arguments of every pose_gn_refine call of the pose init
@@ -1732,7 +1749,7 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
         opts = lm_options_from_jax(json.loads(str(ref["stream_options"])))
         rc = mct.RollingCalibrator(ext, intr, rig.calib_objpoints, window=p["window"],
                                    protect_recent=p["protect"], lm_options=opts, device=dev)
-        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
         worst = [0.0, 0.0]
         for k, lo in enumerate(range(0, p["n_frames"], p["batch"])):
             info = rc.update(rig.all_calib_uvs[:, lo:lo + p["batch"]])
@@ -1747,7 +1764,7 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
                 relative_extrinsics(rc.calibration()[0]),
                 relative_extrinsics(ref["stream_ext"][k]), STREAM_RTOL, STREAM_RTOL,
                 f"f64 update {k}: relative extrinsics"))
-        check((ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before,
+        check((launched("ba_blocks_kernel"), launched("ba_cost_kernel")) == before,
               "the f64 stream launched a BA kernel")
         log("19 rolling f64", f"{p['n_cameras']} cameras, window {p['window']}, "
             f"{p['n_frames'] // p['batch']} updates of {p['batch']} with JAX's LMOptions "
@@ -1779,13 +1796,13 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
 
         rows = []
         polishes.clear()
-        pose_gn_refine.launches = 0
+        zero_launches("pose_gn_kernel")
         for k in range(p["timed"]):
             solves.clear()
-            nb0, nc0 = ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches
+            nb0, nc0 = launched("ba_blocks_kernel"), launched("ba_cost_kernel")
             info, wall = timed(torch, lambda: rc.update(next(batches)))
-            nb = ba_cuda.ba_chunk_blocks.launches - nb0
-            nc = ba_cuda.ba_chunk_cost.launches - nc0
+            nb = launched("ba_blocks_kernel") - nb0
+            nc = launched("ba_cost_kernel") - nc0
             (start, _, sinfo), = solves
             check(nb == sinfo["n_iters"] == info["n_iters"] and nc == sinfo["nfev"],
                   f"update {k}: block launches {nb}, cost launches {nc}; n_iters "
@@ -1796,15 +1813,15 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
                 cam64, pose64, objp64 = lm_core._kernel_params(start[0], start[1], start[4])
                 args = (cam64, pose64, *ba_cuda.ba_prepare_obs(start[2], start[3]), objp64)
                 kt = {"ba_blocks_kernel": (ba_cuda.ba_chunk_blocks,
-                                           ba_cuda.ba_chunk_blocks_reference),
-                      "ba_cost_kernel": (ba_cuda.ba_chunk_cost, ba_cuda.ba_chunk_cost_reference)}
+                                           lm_core.ba_chunk_blocks_reference),
+                      "ba_cost_kernel": (ba_cuda.ba_chunk_cost, lm_core.ba_chunk_cost_reference)}
                 ktimes = {name: (cuda_ms(torch, lambda f=f: f(*args)),
                                  cuda_ms(torch, lambda r=r: r(*args)),
                                  profile_calls(torch, lambda f=f: f(*args))[1])
                           for name, (f, r) in kt.items()}
                 kbounds = ba_bounds(p["n_cameras"], p["window"], rig.calib_objpoints.shape[0],
                                     int(start[3].sum()))
-        n_pose = pose_gn_refine.launches
+        n_pose = launched("pose_gn_kernel")
         check(n_pose == len(polishes) == p["timed"],
               f"pose_gn_kernel launches {n_pose} in {p['timed']} timed updates")
         walls = [r[0] for r in rows]
@@ -1860,7 +1877,7 @@ def rolling_phase(torch, dev, ref, errs, launches, times, bounds):
     errs["pose_gn_kernel"] = pose["max_abs"]
     launches["pose_gn_kernel"] = n_pose
     times["pose_gn_kernel"] = (cuda_ms(torch, lambda: pose_gn_refine(*pargs)),
-                               cuda_ms(torch, lambda: pose_cuda.pose_gn_refine_reference(*pargs),
+                               cuda_ms(torch, lambda: initialize.pose_gn_refine_reference(*pargs),
                                        reps=3))
     pose_alone_us, pose_recorded = kernel_alone_us(torch, lambda: pose_gn_refine(*pargs),
                                                    "pose_gn_kernel")
@@ -2115,13 +2132,12 @@ def detect_camera(path):
 
     from multicam_calibration_tpu_torch.detection import video
     from multicam_calibration_tpu_torch.device import cuda_device
-    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
 
     dev = cuda_device()
-    cc.corner_response_peaks.launches = 0
+    zero_launches("corner_peaks_kernel")
     out, wall = timed(torch, lambda: video._detect_video(
         path, video.detect_chessboard, {"board_shape": VIDEO_BOARD}, device=dev))
-    return out, cc.corner_response_peaks.launches, wall
+    return out, launched("corner_peaks_kernel"), wall
 
 
 def decoded_frames(path):
@@ -2152,7 +2168,6 @@ def video_phase(torch, dev, errs, keep_dir):
     from multicam_calibration_tpu_torch import cli
     from multicam_calibration_tpu_torch.detection import native_video, video
     from multicam_calibration_tpu_torch.models import bundle_adjustment, initialize, lm_core
-    from multicam_calibration_tpu_torch.ops import ba_cuda
     from multicam_calibration_tpu_torch.utils.config import PipelineConfig
     from multicam_calibration_tpu_torch.utils.metrics import metrics
 
@@ -2181,7 +2196,7 @@ def video_phase(torch, dev, errs, keep_dir):
         # launches from 0 (the BA kernels' counts start at 0 here, for the
         # calibration).
         options = {"board_shape": VIDEO_BOARD}
-        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        zero_launches("ba_blocks_kernel", "ba_cost_kernel")
         B0, c0, F0 = video.BATCH_SIZE, VIDEO_SWEEP_CAMERA, min(VIDEO_SWEEP_FRAMES, F)
         found, t_detect = timed(torch, lambda: map_in_processes(detect_camera, paths))
         main, launches, walls = (list(x) for x in zip(*found))
@@ -2317,8 +2332,8 @@ def video_phase(torch, dev, errs, keep_dir):
             metrics.stage_times.clear()
             (ext, intr, poses, use_frames, med, info), t_cal = timed(torch, calibrate_once)
             stages = stage_text(metrics.stage_times, 1)
-            counts = (corner_main, ba_cuda.ba_chunk_blocks.launches,
-                      ba_cuda.ba_chunk_cost.launches)
+            counts = (corner_main, launched("ba_blocks_kernel"),
+                      launched("ba_cost_kernel"))
             check(all(n > 0 for n in counts), f"main path kernel launches {counts} "
                   "(corner, blocks, cost): a kernel of the path did not run")
             check(counts[1:] == expected(info), f"BA wrapper calls {counts[1:]}, the solves "
@@ -2515,8 +2530,6 @@ def shard_rank(rank, port, outdir, videos):
     from multicam_calibration_tpu_torch.detection import video
     from multicam_calibration_tpu_torch.device import cuda_device
     from multicam_calibration_tpu_torch.models import lm_core
-    from multicam_calibration_tpu_torch.ops import ba_cuda
-    from multicam_calibration_tpu_torch.ops import corner_cuda as cc
     from multicam_calibration_tpu_torch.parallel import (
         collectives, distributed_calibration_detection, make_frame_mesh, sharded_lm_solve,
         sharded_triangulate)
@@ -2541,13 +2554,12 @@ def shard_rank(rank, port, outdir, videos):
     out = {}
 
     def zero():
-        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
-        cc.corner_response_peaks.launches = 0
+        zero_launches("ba_blocks_kernel", "ba_cost_kernel", "corner_peaks_kernel")
         collectives.all_reduce.calls = collectives.all_reduce.bytes = 0
 
     def launches():
-        return [ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches,
-                cc.corner_response_peaks.launches, collectives.all_reduce.calls,
+        return [launched("ba_blocks_kernel"), launched("ba_cost_kernel"),
+                launched("corner_peaks_kernel"), collectives.all_reduce.calls,
                 collectives.all_reduce.bytes]
 
     try:
@@ -2654,7 +2666,6 @@ def sharded_phase(torch, dev, bench_rig, videos):
     from multicam_calibration_tpu_torch.convert import lm_options_from_jax
     from multicam_calibration_tpu_torch.models import lm_core
     from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
-    from multicam_calibration_tpu_torch.ops import ba_cuda
     from multicam_calibration_tpu_torch.parallel import (
         collectives, make_frame_mesh, sharded_lm_solve, sharded_triangulate)
 
@@ -2683,14 +2694,14 @@ def sharded_phase(torch, dev, bench_rig, videos):
     single = lambda: lm_core.lm_solve(cam0, poses0, obs, mask, objp, opts)  # noqa: E731
 
     def run(fn):
-        ba_cuda.ba_chunk_blocks.launches = ba_cuda.ba_chunk_cost.launches = 0
+        zero_launches("ba_blocks_kernel", "ba_cost_kernel")
         collectives.all_reduce.calls = collectives.all_reduce.bytes = 0
         collectives.all_gather.calls = collectives.all_gather.bytes = 0
         torch.cuda.reset_peak_memory_stats(dev)
         (cam, poses, info), wall = timed(torch, fn)
         return SimpleNamespace(
-            cam=cam, poses=poses, info=info, wall=wall, nb=ba_cuda.ba_chunk_blocks.launches,
-            nc=ba_cuda.ba_chunk_cost.launches, ar=(collectives.all_reduce.calls,
+            cam=cam, poses=poses, info=info, wall=wall, nb=launched("ba_blocks_kernel"),
+            nc=launched("ba_cost_kernel"), ar=(collectives.all_reduce.calls,
                                                   collectives.all_reduce.bytes),
             ag=(collectives.all_gather.calls, collectives.all_gather.bytes),
             peak=torch.cuda.max_memory_allocated(dev))
@@ -3110,9 +3121,9 @@ def intrinsics_phase(torch, dev):
     before_repair, repaired = [], []
     real_repair = initialize._repair_bad_intrinsics
 
-    def repair(*a):
+    def repair(*a, **kw):
         before_repair[:] = [(K.copy(), d.copy()) for K, d in a[3]]
-        changed = real_repair(*a)
+        changed = real_repair(*a, **kw)
         repaired[:] = [c for c, (K, d) in enumerate(a[3])
                        if not (np.array_equal(K, before_repair[c][0])
                                and np.array_equal(d, before_repair[c][1]))]
@@ -3241,11 +3252,11 @@ def main():
     errs = {"ba_blocks_kernel": 0.0, "ba_cost_kernel": 0.0}
     for label, args in (("bench", bench), ("ragged", rag)):
         got = ba_cuda.ba_chunk_blocks(*args)
-        ref = ba_cuda.ba_chunk_blocks_reference(*args)
+        ref = lm_core.ba_chunk_blocks_reference(*args)
         err, scaled = compare_blocks(got, ref)
         errs["ba_blocks_kernel"] = max(errs["ba_blocks_kernel"], err)
         cerr, trel = compare_cost(ba_cuda.ba_chunk_cost(*args),
-                                  ba_cuda.ba_chunk_cost_reference(*args),
+                                  lm_core.ba_chunk_cost_reference(*args),
                                   ba_cuda.ba_chunk_cost(*args))
         errs["ba_cost_kernel"] = max(errs["ba_cost_kernel"], cerr)
         if label == "ragged":
@@ -3257,9 +3268,9 @@ def main():
             f"{trel:.1e}, relaunch bit-identical")
     times = {
         "ba_blocks_kernel": (cuda_ms(torch, lambda: ba_cuda.ba_chunk_blocks(*bench)),
-                             cuda_ms(torch, lambda: ba_cuda.ba_chunk_blocks_reference(*bench))),
+                             cuda_ms(torch, lambda: lm_core.ba_chunk_blocks_reference(*bench))),
         "ba_cost_kernel": (cuda_ms(torch, lambda: ba_cuda.ba_chunk_cost(*bench)),
-                           cuda_ms(torch, lambda: ba_cuda.ba_chunk_cost_reference(*bench))),
+                           cuda_ms(torch, lambda: lm_core.ba_chunk_cost_reference(*bench))),
     }
     log("3 timing", "bench shape, ms per call, wrapper vs twin: " + "; ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items()))
@@ -3297,14 +3308,14 @@ def main():
 
     # 5. the bench problem, the main path
     def solve(o, cam):
-        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         c, p, info = lm_core.lm_solve(cam, poses0, obs, mask, objp, o)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        blocks = ba_cuda.ba_chunk_blocks.launches - before[0]
-        costs = ba_cuda.ba_chunk_cost.launches - before[1]
+        blocks = launched("ba_blocks_kernel") - before[0]
+        costs = launched("ba_cost_kernel") - before[1]
         return c, p, info, wall, blocks, costs
 
     def quality(c, p, info):
@@ -3324,8 +3335,7 @@ def main():
         "kernel_blocks_only": (dataclasses.replace(opts, cost_impl="torch"), 1, 0),
         "plain": (plain, 0, 0),
     }
-    ba_cuda.ba_chunk_blocks.launches = 0
-    ba_cuda.ba_chunk_cost.launches = 0
+    zero_launches("ba_blocks_kernel", "ba_cost_kernel")
     for o, _, _ in variants.values():  # warm-up
         solve(o, cam0)
     runs = {name: [] for name in variants}
@@ -3341,8 +3351,8 @@ def main():
             check(nc == per_eval * info["nfev"],
                   f"{which}: cost launches {nc}, nfev {info['nfev']}")
             runs[which].append((wall, info["n_iters"], info["nfev"], final, rmse, nb, nc))
-    launches = {"ba_blocks_kernel": ba_cuda.ba_chunk_blocks.launches,
-                "ba_cost_kernel": ba_cuda.ba_chunk_cost.launches}
+    launches = {"ba_blocks_kernel": launched("ba_blocks_kernel"),
+                "ba_cost_kernel": launched("ba_cost_kernel")}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the main path")
 

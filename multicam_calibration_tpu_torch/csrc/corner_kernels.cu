@@ -76,8 +76,8 @@ constexpr int kStageRows = 4;  // rows of global loads a thread keeps in flight
 constexpr int kMaxTaps = 63;  // 2 rg + 1 <= 63: sigma <= 10.16
 
 // Output rows of a tile: fewer rows, more blocks per SM, for small radii; more
-// rows, less halo recomputed, for large ones (scripts/exp_torch_corner.py
-// times the alternatives).
+// rows, less halo recomputed, for large ones (PERF.md §6, row 3 of the
+// kernel table, has the times).
 __host__ __device__ constexpr int tile_h(int RG) {
   return RG == 0 ? 32 : RG == 11 || RG == 27 ? 64 : 48;
 }

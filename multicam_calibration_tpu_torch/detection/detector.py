@@ -47,7 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from ..device import cuda_device, with_highest_precision
-from ..ops.corner_cuda import corner_response_fused, corner_response_peaks
+from ..ops.corner_cuda import (
+    corner_response_fused,
+    corner_response_fused_reference,
+    corner_response_peaks,
+    corner_response_peaks_reference,
+)
 from ..ops.homography import apply_homography, fit_homography, inv3x3
 from ..utils.metrics import metrics
 from . import native_lattice
@@ -118,7 +123,8 @@ def corner_response(gray, sigma=1.5, impl="kernel"):
     pixel of the border.
     """
     if impl == "kernel":
-        return corner_response_fused(gray, sigma)
+        fused = corner_response_fused if gray.is_cuda else corner_response_fused_reference
+        return fused(gray, sigma)
     if impl != "conv":
         raise ValueError(f"impl must be 'kernel' or 'conv', got {impl!r}")
     dtype, dev = gray.dtype, gray.device
@@ -143,7 +149,8 @@ def find_corner_candidates(gray, max_candidates=128, nms_radius=4, sigma=1.5):
     and peak mask come from one launch of the fused corner kernel; the
     top-K is plain torch.
     """
-    resp, is_peak = corner_response_peaks(gray, sigma=sigma, nms_radius=nms_radius)
+    peaks = corner_response_peaks if gray.is_cuda else corner_response_peaks_reference
+    resp, is_peak = peaks(gray, sigma=sigma, nms_radius=nms_radius)
     B, H, W = resp.shape
     dev = resp.device
     # Suppress a border strip (subpixel windows must fit inside the image).
@@ -2115,19 +2122,17 @@ class _PinnedStage:
         out = self.buf.to(dev, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
-        _upload.nbytes += host.nbytes
+        metrics.count("detect.upload_bytes", host.nbytes)
         return out
 
 
 def _upload(arr, dev):
-    """``arr`` (numpy) as a tensor on ``dev``. ``_upload.nbytes`` counts
-    the bytes of the frames and patches that detection copies to a card."""
+    """``arr`` (numpy) as a tensor on ``dev``. The counter
+    ``detect.upload_bytes`` counts the bytes of the frames and patches that
+    detection copies to a card."""
     if dev.type != "cpu":
-        _upload.nbytes += arr.nbytes
+        metrics.count("detect.upload_bytes", arr.nbytes)
     return torch.as_tensor(arr, device=dev)
-
-
-_upload.nbytes = 0
 
 
 def _batch_dispatch(images, max_candidates, nms_radius, win_size, board_shape, template_size, dev,

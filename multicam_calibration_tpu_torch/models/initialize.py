@@ -16,7 +16,8 @@ PyTorch, with the JAX names:
   Gauss-Newton polish of every frame at once, and the planar twin-pose
   check: on CUDA tensors the polish of a slab is one launch of
   ``pose_gn_kernel`` (``ops.pose_cuda``), on CPU tensors its plain twin
-  (``torch.func.jacfwd`` rows, vmapped over cameras).
+  ``pose_gn_refine_reference`` (``torch.func.jacfwd`` rows, vmapped over
+  cameras).
 - ``get_camera_spanning_tree`` / ``estimate_all_extrinsics`` /
   ``consensus_calib_poses`` — the maximum spanning tree over co-detections
   (host numpy), pairwise-transform medians chained along it, and the
@@ -334,7 +335,7 @@ def _polish_poses(poses0, cam12, calib_uvs, mask, objpoints):
     (F, 6) homography poses, (12,) camera, (F, N, 2) detections, (F,) mask
     -> (F, 6), the better branch of each frame, NaN rows where ``mask`` is
     false. The plain twin of ``pose_gn_kernel``
-    (``ops.pose_cuda.pose_gn_refine_reference`` vmaps it over cameras)."""
+    (:func:`pose_gn_refine_reference` vmaps it over cameras)."""
     point_mask = mask[:, None].expand(calib_uvs.shape[:2])
     poses_a = _refine_poses_gn(poses0, cam12, calib_uvs, point_mask, objpoints)
     poses_b = _refine_poses_gn(
@@ -353,6 +354,13 @@ def _polish_poses(poses0, cam12, calib_uvs, mask, objpoints):
     return torch.where(mask[:, None], poses, torch.nan)
 
 
+def pose_gn_refine_reference(poses0, cam12, uvs, mask, objpoints):
+    """Plain PyTorch version of ``ops.pose_cuda.pose_gn_refine``, same
+    arguments and result: :func:`_polish_poses` vmapped over cameras."""
+    return torch.vmap(_polish_poses, in_dims=(0, 0, 0, 0, None))(
+        poses0, cam12, uvs, mask, objpoints)
+
+
 def _planar_start(calib_uvs, K, dist, objpoints):
     """One camera's (mask (F,), homography poses (F, 6), 0 where the board
     is not fully detected)."""
@@ -367,18 +375,23 @@ def _planar_start(calib_uvs, K, dist, objpoints):
 def _estimate_poses(calib_uvs, K, dist, objpoints):
     """Board poses of a slab of cameras: (C, F, N, 2) detections, (C, 3, 3)
     K, (C, D) distortion -> (C, F, 6). The homography stage is a
-    ``torch.vmap`` over cameras; the Gauss-Newton stage is one
-    ``pose_gn_refine`` call on the whole (C, F) batch: one kernel launch on
-    CUDA tensors, the vmapped plain polish on CPU tensors. Each span is one
-    entry per slab."""
+    ``torch.vmap`` over cameras; the Gauss-Newton stage is one call on the
+    whole (C, F) batch: one ``pose_gn_refine`` kernel launch on CUDA
+    tensors, :func:`pose_gn_refine_reference` on CPU tensors. Each span is
+    one entry per slab; ``estimate_pose.gn_kernel.frames`` counts the
+    camera-frames the kernel polished (0 on the CPU)."""
     calib_uvs = calib_uvs.contiguous()
     with metrics.span("estimate_pose.homography"):
         mask, poses0 = torch.vmap(_planar_start, in_dims=(0, 0, 0, None))(
             calib_uvs, K, dist, objpoints)
     with metrics.span("estimate_pose.gauss_newton"):
         cam12 = torch.vmap(_cam12)(K, dist)
-        return pose_gn_refine(poses0.contiguous(), cam12.contiguous(), calib_uvs,
-                              mask.contiguous(), objpoints.contiguous())
+        on_card = calib_uvs.is_cuda
+        refine = pose_gn_refine if on_card else pose_gn_refine_reference
+        poses = refine(poses0.contiguous(), cam12.contiguous(), calib_uvs,
+                       mask.contiguous(), objpoints.contiguous())
+        metrics.count("estimate_pose.gn_kernel.frames", mask.numel() if on_card else 0)
+        return poses
 
 
 def _estimate_pose_impl(calib_uvs, K, dist, objpoints):

@@ -25,7 +25,9 @@ The JAX ``lax.while_loop`` becomes a host Python loop: each damping try
 reads its cost back to decide acceptance. On CUDA tensors with the all-f32
 recipe, the block build and the per-try cost run the hand-written kernels
 of :mod:`..ops.ba_cuda` (the block build once per frame slab, the cost
-once over all frames).
+once over all frames); ``_route`` makes that choice, and the kernels' plain
+twins (``ba_chunk_blocks_reference``, ``ba_chunk_cost_reference``) are
+here, beside the analytic linearization they reuse.
 
 Frame sharding (``axis_name``: a process group or a 1-D ``DeviceMesh``;
 see :mod:`..parallel`): each process holds a slice of the frames and the
@@ -61,6 +63,8 @@ __all__ = [
     "build_normal_blocks",
     "schur_solve",
     "lm_solve",
+    "ba_chunk_blocks_reference",
+    "ba_chunk_cost_reference",
 ]
 
 
@@ -692,6 +696,45 @@ def _linearize_analytic(cam_params, pose_params, obs, mask, objpoints, opts):
         U.to(dd), V.to(dd), W.to(dd), g_cam.to(dd).sum(1),
         g_pose.to(dd).sum(0), rho.to(dd).sum(),
     )
+
+
+def _kernel_recipe(f_scale, loss_linear):
+    """The all-f32 LMOptions recipe the BA kernels implement."""
+    return LMOptions(
+        loss="linear" if loss_linear else "soft_l1", f_scale=float(f_scale),
+        jac_dtype="float32", block_dtype="float32", grad_dtype="float32",
+        cost_dtype="float32",
+    )
+
+
+def ba_chunk_blocks_reference(
+    cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
+):
+    """Plain PyTorch version of ``ops.ba_cuda.ba_chunk_blocks``, same
+    arguments and fragments: :func:`_analytic_fragments` under the kernels'
+    all-f32 recipe, without the frame and camera reductions of the gradient
+    and cost."""
+    f64 = torch.float64
+    return _analytic_fragments(
+        cam_params.to(f64), pose_k.to(f64), obs.to(f64), msk.bool(),
+        objpoints.to(f64), _kernel_recipe(f_scale, loss_linear),
+    )
+
+
+def ba_chunk_cost_reference(
+    cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
+):
+    """Plain PyTorch version of ``ops.ba_cuda.ba_chunk_cost``: (C, Fk) f32
+    fragments of the robust cost of the f64 residual, and their f64 sum
+    (0-d)."""
+    f64 = torch.float64
+    m = msk.bool()
+    r = compute_residuals(
+        cam_params.to(f64), pose_k.to(f64), obs.to(f64), m, objpoints.to(f64)
+    ).to(torch.float32)
+    r2 = torch.where(m[..., None], r**2, 0.0)
+    frags = _robust_cost(r2, _kernel_recipe(f_scale, loss_linear), axis=(-2, -1))
+    return frags, frags.to(f64).sum()
 
 
 def _cholesky(M):

@@ -1,5 +1,6 @@
 """Geometry, homography and masked-reduction ops; the CUDA kernels' wrappers
-live in ``ba_cuda`` and ``corner_cuda``."""
+live in ``ba_cuda``, ``corner_cuda`` and ``pose_cuda``, on the one launch
+path of ``_build``. Nothing here imports ``models``."""
 from .rotation import rodrigues, rodrigues_inv, so3_exp, so3_log, skew
 from .transforms import (
     apply_rigid_transform,

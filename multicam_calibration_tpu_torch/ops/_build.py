@@ -1,4 +1,5 @@
-"""Build and load the port's native code: compiler -> shared library -> ctypes.
+"""Build, load and launch the port's native code: compiler -> shared
+library -> ctypes -> one launch path.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) with nvcc at first use (:func:`load_library`); each
@@ -11,9 +12,19 @@ rebuilt and an unchanged one is reused, with the build's log beside the
 library. Nothing here runs at import time: this module is imported on
 machines with no CUDA toolkit, where only the kernels' plain PyTorch twins
 run. A failed build raises.
+
+The kernel wrappers (``ba_cuda``, ``corner_cuda``, ``pose_cuda``) reach
+their kernels one way, :class:`KernelLibrary`: the library is built and
+bound once; a launch takes the current stream of its inputs' device,
+switches device only when the thread is on another, and adds one to the
+``utils.metrics`` counter ``<kernel>.launches``; a non-zero code becomes a
+``RuntimeError`` (:func:`check_launch`). :func:`check_inputs` refuses what
+a kernel cannot read in place, CPU tensors first: the kernels have no CPU
+mode, and the caller that owns the math picks the plain twin there.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -24,7 +35,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuiltLibrary", "HOST_FLAGS", "NVCC_FLAGS", "load_host_library", "load_library"]
+import torch
+
+from ..utils.metrics import metrics
+
+__all__ = ["BuiltLibrary", "HOST_FLAGS", "KernelLibrary", "NVCC_FLAGS", "check_inputs",
+           "check_launch", "load_host_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -107,3 +123,55 @@ def load_host_library(name: str, libs: tuple = ()) -> BuiltLibrary:
     on failure. The log holds the command line and the compiler's output."""
     return _build(CSRC_DIR / f"{name}.cc", _host_cxx, HOST_FLAGS, with_command=True,
                   libs=tuple(libs))
+
+
+class KernelLibrary:
+    """``csrc/<name>.cu`` on the launch path: ``bind(lib)`` declares its C
+    signatures and returns the library."""
+
+    def __init__(self, name, bind):
+        self._name, self._bind = name, bind
+
+    @functools.cached_property
+    def lib(self):
+        """The library, built if needed, loaded and bound on first use."""
+        return self._bind(load_library(self._name).lib)
+
+    def launch(self, kernel, fn, device, *args):
+        """``fn(lib, stream, *args)`` on the current stream of ``device``,
+        counted once as ``<kernel>.launches``; returns what ``fn`` returns."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # A launch goes to the thread's current device: switch only if needed.
+        switch = torch.cuda.current_device() != device.index
+        with torch.cuda.device(device) if switch else contextlib.nullcontext():
+            out = fn(self.lib, stream, *args)
+        metrics.count(f"{kernel}.launches")
+        return out
+
+
+def check_launch(code, kernel, error_string):
+    """Raise for a non-zero launch ``code``, with the library's message for
+    it (``error_string(code)``, bytes)."""
+    if code != 0:
+        msg = error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {code})")
+
+
+def check_inputs(*specs):
+    """Refuse what a kernel cannot read in place. ``specs`` are (name,
+    tensor, dtype): every tensor on the first one's device, which must be
+    a CUDA device, of its dtype and contiguous; a dtype of None (an input
+    the launch function converts itself) checks the device alone. Raises
+    ValueError."""
+    dev = specs[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
+    for name, t, dtype in specs:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {specs[0][0]} on {dev}")
+        if dtype is None:
+            continue
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

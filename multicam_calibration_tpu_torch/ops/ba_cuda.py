@@ -16,13 +16,13 @@ The kernels take the raw parameters and compute the rotations and left
 Jacobians themselves, so a wrapper does no tensor arithmetic on the card:
 it checks its inputs, allocates its outputs and launches.
 
-Each wrapper has a plain PyTorch twin in this module
-(``ba_chunk_blocks_reference``, ``ba_chunk_cost_reference``) computing the
-same fragments under the same precision contract. A wrapper runs its twin
-only for tensors that lie on the CPU; for CUDA tensors it launches the
-kernel or raises, and never falls back. Each wrapper counts its kernel
-launches in a plain integer attribute, ``ba_chunk_blocks.launches`` and
-``ba_chunk_cost.launches``, so a run can show which path it took.
+The wrappers take CUDA tensors only and refuse others: the plain PyTorch
+twins (``ba_chunk_blocks_reference``, ``ba_chunk_cost_reference``), which
+compute the same fragments under the same precision contract, live beside
+the analytic linearization in ``models.lm_core``, whose dispatch
+(``lm_core._route``) chooses between kernel and twin. A wrapper launches
+through ``_build.KernelLibrary``, which counts ``ba_blocks_kernel.launches``
+and ``ba_cost_kernel.launches`` (``utils.metrics``), one per wrapper call.
 
 Precision contract (ba_pallas.py:24-27): the residual is f64; Jacobian rows,
 robust weights, in-frame products and in-tile sums are f32; every output is
@@ -31,22 +31,15 @@ cameras in f64 (the cost kernel also returns that f64 reduction itself).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
 
 import torch
 
+from ._build import KernelLibrary, check_inputs, check_launch
 
-__all__ = [
-    "MAX_ROWS",
-    "ba_prepare_obs",
-    "ba_chunk_blocks",
-    "ba_chunk_blocks_reference",
-    "ba_chunk_cost",
-    "ba_chunk_cost_reference",
-]
+__all__ = ["MAX_ROWS", "ba_prepare_obs", "ba_chunk_blocks", "ba_chunk_cost"]
 
 MAX_ROWS = 128  # N*2 <= 128 (point, u/v) rows per frame: N <= 64 board points
 
@@ -66,68 +59,6 @@ def ba_prepare_obs(obs, mask):
     return obs.to(torch.float64).contiguous(), mask.to(torch.uint8).contiguous()
 
 
-# ---------------------------------------------------------------------------
-# Plain PyTorch twins
-# ---------------------------------------------------------------------------
-
-
-def _recipe(f_scale, loss_linear):
-    """The all-f32 LMOptions recipe the kernels implement."""
-    from ..models.lm_core import LMOptions
-
-    return LMOptions(
-        loss="linear" if loss_linear else "soft_l1", f_scale=float(f_scale),
-        jac_dtype="float32", block_dtype="float32", grad_dtype="float32",
-        cost_dtype="float32",
-    )
-
-
-def ba_chunk_blocks_reference(
-    cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
-):
-    """Plain PyTorch version of :func:`ba_chunk_blocks`, same fragments.
-
-    lm_core's analytic linearization under the all-f32 recipe, without the
-    frame and camera reductions of the gradient and cost.
-    """
-    from ..models.lm_core import _analytic_fragments
-
-    f64 = torch.float64
-    return _analytic_fragments(
-        cam_params.to(f64), pose_k.to(f64), obs.to(f64), msk.bool(),
-        objpoints.to(f64), _recipe(f_scale, loss_linear),
-    )
-
-
-def ba_chunk_cost_reference(
-    cam_params, pose_k, obs, msk, objpoints, f_scale=1.0, loss_linear=False,
-):
-    """Plain PyTorch version of :func:`ba_chunk_cost`: (C, Fk) f32 fragments
-    of the robust cost of the f64 residual, and their f64 sum (0-d)."""
-    from ..models.lm_core import _robust_cost, compute_residuals
-
-    f64 = torch.float64
-    m = msk.bool()
-    r = compute_residuals(
-        cam_params.to(f64), pose_k.to(f64), obs.to(f64), m, objpoints.to(f64)
-    ).to(torch.float32)
-    r2 = torch.where(m[..., None], r**2, 0.0)
-    frags = _robust_cost(r2, _recipe(f_scale, loss_linear), axis=(-2, -1))
-    return frags, frags.to(f64).sum()
-
-
-# ---------------------------------------------------------------------------
-# Kernel wrappers
-# ---------------------------------------------------------------------------
-
-
-@functools.cache
-def _lib():
-    from ._build import load_library
-
-    return bind(load_library("ba_kernels").lib)
-
-
 def bind(lib):
     """Declare the C interface of a loaded ``ba_kernels`` library; returns it."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -145,20 +76,15 @@ def bind(lib):
     return lib
 
 
-def _check(cam_params, pose_k, obs, msk, objpoints):
-    """Validate the kernels' inputs; returns (C, F, N).
+_KERNELS = KernelLibrary("ba_kernels", bind)
 
-    The kernels read every input in place: parameters and board points f64,
-    obs/msk as :func:`ba_prepare_obs` makes them, all contiguous.
-    """
-    dev = cam_params.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
-    named = (("cam_params", cam_params), ("pose_k", pose_k), ("obs", obs),
-             ("msk", msk), ("objpoints", objpoints))
-    for name, t in named[1:]:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, cam_params on {dev}")
+
+def _check(cam_params, pose_k, obs, msk, objpoints):
+    """Validate the kernels' inputs. The kernels read every input in place: parameters and board points f64,
+    obs/msk as :func:`ba_prepare_obs` makes them, all contiguous."""
+    f64 = torch.float64
+    check_inputs(("cam_params", cam_params, f64), ("pose_k", pose_k, f64), ("obs", obs, f64),
+                 ("msk", msk, torch.uint8), ("objpoints", objpoints, f64))
     C, F, N = msk.shape
     if cam_params.shape != (C, 12) or pose_k.shape != (F, 6):
         raise ValueError(
@@ -170,22 +96,8 @@ def _check(cam_params, pose_k, obs, msk, objpoints):
             f"shapes: obs {tuple(obs.shape)}, objpoints "
             f"{tuple(objpoints.shape)}, msk {(C, F, N)}"
         )
-    if msk.dtype != torch.uint8:
-        raise ValueError("msk must come from ba_prepare_obs (uint8)")
-    for name, t in named:
-        if name != "msk" and t.dtype != torch.float64:
-            raise ValueError(f"{name} must be float64, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if min(C, F, N) < 1 or N * 2 > MAX_ROWS:
         raise ValueError(f"unsupported sizes C={C} F={F} N={N}")
-    return C, F, N
-
-
-def _raise_on(code, what):
-    if code != 0:
-        msg = _lib().ba_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
 
 
 def _launch_blocks(lib, stream, cam_params, pose_k, obs, msk, objpoints,
@@ -207,7 +119,7 @@ def _launch_blocks(lib, stream, cam_params, pose_k, obs, msk, objpoints,
         int(bool(loss_linear)), *(t.data_ptr() for t in outs),
         parts[-1].data_ptr(), stream,
     )
-    _raise_on(code, "ba_blocks_kernel")
+    check_launch(code, "ba_blocks_kernel", lib.ba_error_string)
     return outs
 
 
@@ -238,25 +150,8 @@ def _launch_cost(lib, stream, cam_params, pose_k, obs, msk, objpoints,
         int(bool(loss_linear)), out + 8 * head, out, out + 8,
         _ticket(dev, stream).data_ptr(), stream,
     )
-    _raise_on(code, "ba_cost_kernel")
+    check_launch(code, "ba_cost_kernel", lib.ba_error_string)
     return frags, total
-
-
-def _on_card(launch, counted, cam_params, pose_k, obs, msk, objpoints,
-             f_scale, loss_linear):
-    """Check the inputs, launch on the current stream of their device and
-    count the launch on ``counted``."""
-    _check(cam_params, pose_k, obs, msk, objpoints)
-    lib = _lib()
-    dev = cam_params.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # A launch goes to the thread's current device: switch only if needed.
-    switch = torch.cuda.current_device() != dev.index
-    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
-        out = launch(lib, stream, cam_params, pose_k, obs, msk, objpoints,
-                     f_scale, loss_linear)
-    counted.launches += 1
-    return out
 
 
 def ba_chunk_blocks(
@@ -272,12 +167,9 @@ def ba_chunk_blocks(
     launches (``ba_blocks_kernel``, ``ba_reduce_kernel``) and one
     allocation, nothing else.
     """
-    if cam_params.device.type == "cpu":
-        return ba_chunk_blocks_reference(
-            cam_params, pose_k, obs, msk, objpoints, f_scale, loss_linear
-        )
-    return _on_card(_launch_blocks, ba_chunk_blocks, cam_params, pose_k, obs,
-                    msk, objpoints, f_scale, loss_linear)
+    _check(cam_params, pose_k, obs, msk, objpoints)
+    return _KERNELS.launch("ba_blocks_kernel", _launch_blocks, cam_params.device, cam_params,
+                           pose_k, obs, msk, objpoints, f_scale, loss_linear)
 
 
 def ba_chunk_cost(
@@ -292,13 +184,6 @@ def ba_chunk_cost(
     dtype reduces the fragments itself). On the card: one kernel launch and
     one allocation, nothing else.
     """
-    if cam_params.device.type == "cpu":
-        return ba_chunk_cost_reference(
-            cam_params, pose_k, obs, msk, objpoints, f_scale, loss_linear
-        )
-    return _on_card(_launch_cost, ba_chunk_cost, cam_params, pose_k, obs, msk,
-                    objpoints, f_scale, loss_linear)
-
-
-ba_chunk_blocks.launches = 0
-ba_chunk_cost.launches = 0
+    _check(cam_params, pose_k, obs, msk, objpoints)
+    return _KERNELS.launch("ba_cost_kernel", _launch_cost, cam_params.device, cam_params,
+                           pose_k, obs, msk, objpoints, f_scale, loss_linear)

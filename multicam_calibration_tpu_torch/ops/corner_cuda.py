@@ -21,18 +21,19 @@ The Gaussian taps are the f64-normalized numpy taps cast to f32.
 Each wrapper has a plain PyTorch twin here (``*_reference``): shifted
 multiply-adds in the Pallas order, a separable shifted max and the same zero
 halo, one tensor op per rounding step, so kernel and twin agree bit for bit.
-A wrapper runs its twin only for a tensor that lies on the CPU; for a CUDA
-tensor it launches the kernel or raises, and never falls back. Each wrapper
-counts its launches in a plain integer attribute,
-``corner_response_peaks.launches`` and ``corner_response_fused.launches``.
+A wrapper takes CUDA tensors only and refuses others; the detector chooses
+the twin for CPU tensors. The launches go through
+``_build.KernelLibrary``, which counts ``corner_peaks_kernel.launches`` and
+``corner_response_kernel.launches`` (``utils.metrics``).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
+
+from ._build import KernelLibrary, check_inputs, check_launch
 
 __all__ = [
     "gaussian_taps",
@@ -119,13 +120,6 @@ def peaks_of(resp_ext, nms_radius):
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _lib():
-    from ._build import load_library
-
-    return bind(load_library("corner_kernels").lib)
-
-
 def bind(lib):
     """Declare the C interface of a loaded ``corner_kernels`` library; returns it."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -138,6 +132,9 @@ def bind(lib):
     lib.corner_smem_bytes.argtypes = [i32, i32, i32]
     lib.corner_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+_KERNELS = KernelLibrary("corner_kernels", bind)
 
 
 def _launch(lib, stream, gray, sigma, nms_radius, peaks, what):
@@ -157,20 +154,14 @@ def _launch(lib, stream, gray, sigma, nms_radius, peaks, what):
         gray.data_ptr(), B, H, W, c_taps, rg, int(nms_radius), int(peaks),
         resp.data_ptr(), None if peak is None else peak.data_ptr(), stream,
     )
-    if code != 0:
-        msg = lib.corner_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
+    check_launch(code, what, lib.corner_error_string)
     return resp, peak
 
 
 def _on_card(gray, sigma, nms_radius, peaks, what):
-    """Launch on the current stream of the CUDA tensor's device."""
-    if gray.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {gray.device}")
-    lib = _lib()
-    with torch.cuda.device(gray.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        return _launch(lib, stream, gray, sigma, nms_radius, peaks, what)
+    """Launch ``what`` on the current stream of the CUDA tensor's device."""
+    check_inputs(("gray", gray, None))
+    return _KERNELS.launch(what, _launch, gray.device, gray, sigma, nms_radius, peaks, what)
 
 
 def corner_response_peaks(gray, sigma=1.5, nms_radius=4):
@@ -180,21 +171,10 @@ def corner_response_peaks(gray, sigma=1.5, nms_radius=4):
     peak = (resp >= its (2 nms_radius + 1)^2 window max) & (resp > 0).
     f64 grays are cast down to f32, as the Pallas kernel does.
     """
-    if gray.device.type == "cpu":
-        return corner_response_peaks_reference(gray, sigma, nms_radius)
     resp, peak = _on_card(gray, sigma, nms_radius, True, "corner_peaks_kernel")
-    corner_response_peaks.launches += 1
     return resp, peak.view(torch.bool)
 
 
 def corner_response_fused(gray, sigma=1.5):
     """Saddle response Ixy^2 - Ixx * Iyy over (B, H, W) grays, f32."""
-    if gray.device.type == "cpu":
-        return corner_response_fused_reference(gray, sigma)
-    resp, _ = _on_card(gray, sigma, 0, False, "corner_response_kernel")
-    corner_response_fused.launches += 1
-    return resp
-
-
-corner_response_peaks.launches = 0
-corner_response_fused.launches = 0
+    return _on_card(gray, sigma, 0, False, "corner_response_kernel")[0]

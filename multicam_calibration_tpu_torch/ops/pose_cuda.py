@@ -8,44 +8,22 @@ result, 10 steps from the twin), compares their squared errors and keeps
 the better, all in f64, in one launch per call. It replaces no TPU kernel:
 the JAX package's ``_refine_poses_gn`` is jnp that XLA fuses.
 
-The plain PyTorch twin, ``pose_gn_refine_reference``, is
-``initialize._polish_poses`` vmapped over cameras: the polish as the JAX
-package writes it, ``torch.func.jacfwd`` rows and a batched Cholesky per
-step. The wrapper runs the twin only for tensors that lie on the CPU; for
-CUDA tensors it launches the kernel or raises, and never falls back. It
-counts its launches in the plain integer ``pose_gn_refine.launches``, and
-the camera-frames the kernel refined in the ``utils.metrics`` counter
-``estimate_pose.gn_kernel.frames`` (0 for a call on the CPU).
+The wrapper takes CUDA tensors only and refuses others. The plain PyTorch
+twin, ``initialize.pose_gn_refine_reference`` (``_polish_poses`` vmapped
+over cameras), lives beside the polish it vmaps, and
+``initialize._estimate_poses`` chooses between the two. The launch goes
+through ``_build.KernelLibrary``, which counts ``pose_gn_kernel.launches``
+(``utils.metrics``).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 
 import torch
 
-from ..utils.metrics import metrics
+from ._build import KernelLibrary, check_inputs, check_launch
 
-__all__ = ["pose_gn_refine", "pose_gn_refine_reference"]
-
-COUNTER = "estimate_pose.gn_kernel.frames"
-
-
-def pose_gn_refine_reference(poses0, cam12, uvs, mask, objpoints):
-    """Plain PyTorch version of :func:`pose_gn_refine`, same arguments:
-    ``initialize._polish_poses`` vmapped over cameras."""
-    from ..models.initialize import _polish_poses
-
-    return torch.vmap(_polish_poses, in_dims=(0, 0, 0, 0, None))(
-        poses0, cam12, uvs, mask, objpoints)
-
-
-@functools.cache
-def _lib():
-    from ._build import load_library
-
-    return bind(load_library("pose_kernels").lib)
+__all__ = ["pose_gn_refine"]
 
 
 def bind(lib):
@@ -58,18 +36,16 @@ def bind(lib):
     return lib
 
 
+_KERNELS = KernelLibrary("pose_kernels", bind)
+
+
 def _check(poses0, cam12, uvs, mask, objpoints):
-    """Validate the kernel's inputs; returns (C, F, N). The kernel reads
-    every input in place: f64 poses, cameras, detections and board points,
-    a bool mask, all contiguous."""
-    dev = poses0.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    named = (("poses0", poses0), ("cam12", cam12), ("uvs", uvs), ("mask", mask),
-             ("objpoints", objpoints))
-    for name, t in named[1:]:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, poses0 on {dev}")
+    """Validate the kernel's inputs. The kernel reads every input in place:
+    f64 poses, cameras, detections and board points, a bool mask, all
+    contiguous."""
+    f64 = torch.float64
+    check_inputs(("poses0", poses0, f64), ("cam12", cam12, f64), ("uvs", uvs, f64),
+                 ("mask", mask, torch.bool), ("objpoints", objpoints, f64))
     C, F = mask.shape if mask.ndim == 2 else (-1, -1)
     N = objpoints.shape[0]
     if (mask.ndim != 2 or poses0.shape != (C, F, 6) or cam12.shape != (C, 12)
@@ -77,16 +53,8 @@ def _check(poses0, cam12, uvs, mask, objpoints):
         raise ValueError(
             f"shapes: poses0 {tuple(poses0.shape)}, cam12 {tuple(cam12.shape)}, uvs "
             f"{tuple(uvs.shape)}, mask {tuple(mask.shape)}, objpoints {tuple(objpoints.shape)}")
-    if mask.dtype != torch.bool:
-        raise ValueError(f"mask must be bool, got {mask.dtype}")
-    for name, t in named:
-        if name != "mask" and t.dtype != torch.float64:
-            raise ValueError(f"{name} must be float64, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if N < 1:
         raise ValueError("the board has no points")
-    return C, F, N
 
 
 def _launch(lib, stream, poses0, cam12, uvs, mask, objpoints):
@@ -97,9 +65,7 @@ def _launch(lib, stream, poses0, cam12, uvs, mask, objpoints):
     code = lib.pose_gn_launch(
         poses0.data_ptr(), cam12.data_ptr(), uvs.data_ptr(), mask.data_ptr(),
         objpoints.data_ptr(), C, F, objpoints.shape[0], out.data_ptr(), stream)
-    if code != 0:
-        msg = lib.pose_error_string(code).decode()
-        raise RuntimeError(f"pose_gn_kernel launch failed: {msg} (cudaError {code})")
+    check_launch(code, "pose_gn_kernel", lib.pose_error_string)
     return out
 
 
@@ -111,25 +77,11 @@ def pose_gn_refine(poses0, cam12, uvs, mask, objpoints):
     cy, k1, k2, then the extrinsics, which the polish takes as identity),
     uvs (C, F, N, 2) detections, mask (C, F) bool (frames fully detected),
     objpoints (N, 3). Returns (C, F, 6) f64, NaN rows where ``mask`` is
-    false. On the card the inputs must be f64 (the mask bool), contiguous,
-    on one device, with any N >= 1 (a lane of the frame's warp takes
+    false. The inputs must be CUDA tensors on one device, f64 (the mask
+    bool) and contiguous, with any N >= 1 (a lane of the frame's warp takes
     every 32nd point): one kernel launch on the current stream and one
     allocation, no synchronisation.
     """
-    if poses0.device.type == "cpu":
-        metrics.count(COUNTER, 0)
-        return pose_gn_refine_reference(poses0, cam12, uvs, mask, objpoints)
-    C, F, _ = _check(poses0, cam12, uvs, mask, objpoints)
-    lib = _lib()
-    dev = poses0.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # A launch goes to the thread's current device: switch only if needed.
-    switch = torch.cuda.current_device() != dev.index
-    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
-        out = _launch(lib, stream, poses0, cam12, uvs, mask, objpoints)
-    pose_gn_refine.launches += 1
-    metrics.count(COUNTER, C * F)
-    return out
-
-
-pose_gn_refine.launches = 0
+    _check(poses0, cam12, uvs, mask, objpoints)
+    return _KERNELS.launch("pose_gn_kernel", _launch, poses0.device, poses0, cam12, uvs,
+                           mask, objpoints)

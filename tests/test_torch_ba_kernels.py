@@ -1,8 +1,9 @@
 """The port's bundle-adjustment kernels vs the JAX Pallas kernels.
 
-On the CPU the wrappers ``ba_chunk_blocks`` / ``ba_chunk_cost`` run their
-plain PyTorch twins (the CUDA kernels run only on a card). Those twins are
-held against the JAX Pallas kernels run in interpret mode, on the problem
+The wrappers ``ops.ba_cuda.ba_chunk_blocks`` / ``ba_chunk_cost`` run only
+on a card and refuse CPU tensors; on the CPU ``models.lm_core`` chooses
+their plain PyTorch twins (``lm_core.ba_chunk_blocks_reference`` /
+``ba_chunk_cost_reference``). Those twins are held against the JAX Pallas kernels run in interpret mode, on the problem
 of tests/test_ba_pallas.py (C=3, F=8, N=35, seed 4, tile_f=8), at that
 file's tolerances: the Pallas kernel runs a two-float f32 chain and f32
 contractions, the twin an f64 chain and f32 contractions in another order,
@@ -32,6 +33,7 @@ from multicam_calibration_tpu.ops import ba_pallas
 from multicam_calibration_tpu_torch.models import lm_core as tlm
 from multicam_calibration_tpu_torch.ops import ba_cuda
 from multicam_calibration_tpu_torch.ops.rotation import so3_exp, so3_left_jacobian
+from multicam_calibration_tpu_torch.utils.metrics import metrics
 from tests.test_torch_cuda import EDGE_ANGLES, _problem
 
 C, F, N = 3, 8, 35
@@ -75,6 +77,20 @@ def _port(fn, p, **kw):
     return [x.double().numpy() for x in out]
 
 
+def _launches():
+    """The BA kernels' launch counters (``utils.metrics``)."""
+    return tuple(metrics.stage_times.get(f"{k}.launches", 0)
+                 for k in ("ba_blocks_kernel", "ba_cost_kernel"))
+
+
+def _refused(fn, p):
+    """``fn`` refuses the CPU tensors of ``p`` before it launches anything."""
+    before = _launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        _port(fn, p)
+    assert _launches() == before
+
+
 @pytest.fixture(scope="module")
 def problem():
     return _rig_problem(C, F, seed=4, perturb_seed=2)
@@ -100,20 +116,25 @@ def _assert_blocks_close(port, ref):
 
 @pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
 def test_block_twin_matches_pallas_kernel(problem, loss_linear):
-    launches = ba_cuda.ba_chunk_blocks.launches
-    port = _port(ba_cuda.ba_chunk_blocks, problem, loss_linear=loss_linear)
+    port = _port(tlm.ba_chunk_blocks_reference, problem, loss_linear=loss_linear)
     ref = _jax_blocks(problem, tile_f=8, loss_linear=loss_linear)
     assert [x.shape for x in port] == [x.shape for x in ref]
     _assert_blocks_close(port, ref)
-    # CPU tensors run the twin: the kernel's launch count does not move.
-    assert ba_cuda.ba_chunk_blocks.launches == launches
+    # The wrapper takes no CPU tensor: the twin is the caller's choice.
+    _refused(ba_cuda.ba_chunk_blocks, problem)
 
 
 def test_block_wrapper_is_twin_on_cpu(problem):
-    a = _port(ba_cuda.ba_chunk_blocks, problem)
-    b = _port(ba_cuda.ba_chunk_blocks_reference, problem)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    """lm_core's choice on CPU tensors under the kernels' recipe is the
+    twin's math: its blocks are the twin's fragments reduced, bit for bit,
+    and the wrapper refuses the same tensors."""
+    cam, poses, obs, mask, objp = (torch.as_tensor(x) for x in problem)
+    got = tlm.build_normal_blocks(cam, poses, obs, mask, objp, tlm.LMOptions(**RECIPE))
+    U, V, W, g_cam, g_pose, cost = (x.double() for x in tlm.ba_chunk_blocks_reference(
+        cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp))
+    for x, y in zip(got, (U, V, W, g_cam.sum(1), g_pose.sum(0), cost.sum())):
+        assert torch.equal(x, y)
+    _refused(ba_cuda.ba_chunk_blocks, problem)
 
 
 @pytest.mark.parametrize("loss_linear", [False, True], ids=["soft_l1", "linear"])
@@ -127,8 +148,7 @@ def test_cost_twin_matches_pallas_kernel(problem, loss_linear):
         ),
         np.float64,
     )
-    launches = ba_cuda.ba_chunk_cost.launches
-    port, total = _port(ba_cuda.ba_chunk_cost, problem, loss_linear=loss_linear)
+    port, total = _port(tlm.ba_chunk_cost_reference, problem, loss_linear=loss_linear)
     assert port.shape == ref.shape == (C, F)
     np.testing.assert_allclose(port, ref, rtol=2e-5, atol=1e-7)
     # the total: the f64 sum of the wrapper's fragments, and Pallas's at the
@@ -136,7 +156,7 @@ def test_cost_twin_matches_pallas_kernel(problem, loss_linear):
     assert total.shape == ()
     np.testing.assert_allclose(total, port.sum(), rtol=1e-12)
     np.testing.assert_allclose(total, ref.sum(), rtol=3e-5)
-    assert ba_cuda.ba_chunk_cost.launches == launches
+    _refused(ba_cuda.ba_chunk_cost, problem)
 
 
 def test_padded_frames_near_identity_camera():
@@ -153,13 +173,13 @@ def test_padded_frames_near_identity_camera():
         np.concatenate([mask, np.zeros((2, pad, N), bool)], 1),
         objp,
     )
-    port_pad = _port(ba_cuda.ba_chunk_blocks, padded)
+    port_pad = _port(tlm.ba_chunk_blocks_reference, padded)
     for name, x in zip(("U", "V", "W", "g_cam", "g_pose", "cost"), port_pad):
         assert np.isfinite(x).all(), name
     assert np.abs(port_pad[1][70:]).max() == 0.0
     assert np.abs(port_pad[2][:, 70:]).max() == 0.0
     assert np.abs(port_pad[5][:, 70:]).max() == 0.0
-    port = _port(ba_cuda.ba_chunk_blocks, (cam, poses, obs, mask, objp))
+    port = _port(tlm.ba_chunk_blocks_reference, (cam, poses, obs, mask, objp))
     ref = _jax_blocks((cam, poses, obs, mask, objp), tile_f=64)
     _assert_blocks_close(port, ref)
 
@@ -227,12 +247,12 @@ def test_dispatch_policy(problem):
 
 def test_auto_solve_on_cpu_never_launches(problem):
     cam, poses, obs, mask, objp = (torch.as_tensor(x) for x in problem)
-    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+    before = _launches()
     opts = tlm.LMOptions(max_iters=2, **RECIPE)
     assert opts.cost_impl == "auto" and opts.block_impl == "auto"
     _, _, info = tlm.lm_solve(cam, poses, obs, mask, objp, opts)
     assert np.isfinite(info["final_cost"])
-    assert (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before
+    assert _launches() == before
     # on the CPU the default is the torch route: the same trajectory, bit for bit
     _, _, info_t = tlm.lm_solve(
         cam, poses, obs, mask, objp,
@@ -447,6 +467,6 @@ def test_kernel_order_emulation_matches_twin_and_pallas(shape, loss_linear):
         assert np.abs(emu[1][F_:]).max() == 0.0
         assert np.abs(emu[2][:, F_:]).max() == 0.0
         assert np.abs(emu[5][:, F_:]).max() == 0.0
-    twin = _port(ba_cuda.ba_chunk_blocks_reference, p, loss_linear=loss_linear)
+    twin = _port(tlm.ba_chunk_blocks_reference, p, loss_linear=loss_linear)
     _assert_blocks_close(emu, twin)
     _assert_blocks_close(emu, _jax_blocks(p, tile_f=tile_f, loss_linear=loss_linear))

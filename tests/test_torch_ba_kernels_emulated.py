@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from multicam_calibration_tpu_torch.models import lm_core
 from multicam_calibration_tpu_torch.models.lm_core import _predict
 from multicam_calibration_tpu_torch.ops import ba_cuda
 from tests.test_torch_cuda import _assert_blocks_close, _problem
@@ -225,7 +226,7 @@ COST_CASES = {
 def test_emulated_kernels_match_twins(lib, case, loss_linear):
     args = CASES[case]()
     got = ba_cuda._launch_blocks(lib, 0, *args, 1.0, loss_linear)
-    _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(*args, 1.0, loss_linear))
+    _assert_blocks_close(got, lm_core.ba_chunk_blocks_reference(*args, 1.0, loss_linear))
     for a, b in zip(got, ba_cuda._launch_blocks(lib, 0, *args, 1.0, loss_linear)):
         assert torch.equal(a, b)  # a fixed sum order: a relaunch is bit-identical
     if case.startswith("padded"):
@@ -245,7 +246,7 @@ def test_emulated_cost_kernel_matches_twin(lib, case, loss_linear):
     a relaunch is bit-identical and finds the arrival counter back at 0."""
     args = COST_CASES[case]()
     frags, total = ba_cuda._launch_cost(lib, 0, *args, 1.0, loss_linear)
-    ref_frags, ref_total = ba_cuda.ba_chunk_cost_reference(*args, 1.0, loss_linear)
+    ref_frags, ref_total = lm_core.ba_chunk_cost_reference(*args, 1.0, loss_linear)
     assert frags.shape == ref_frags.shape == args[3].shape[:2]
     assert frags.dtype == torch.float32 and total.dtype == torch.float64
     assert total.shape == ref_total.shape == ()

@@ -1,7 +1,8 @@
 """The corner-response kernel's plain twins against the JAX Pallas kernels.
 
 ``ops/corner_cuda.py`` holds the wrappers of the CUDA corner kernel and
-their plain PyTorch twins; on the CPU the wrappers run the twins. The same
+their plain PyTorch twins; the wrappers refuse CPU tensors, and on the CPU
+the detector runs the twins. The same
 numpy inputs go through the twins and through the JAX package's
 ``corner_response_peaks_pallas`` / ``corner_response_pallas`` in interpret
 mode (the Pallas kernels whose semantics the CUDA kernel follows). Both are
@@ -24,8 +25,13 @@ from multicam_calibration_tpu.ops.pallas_kernels import (
     corner_response_pallas,
     corner_response_peaks_pallas,
 )
-from multicam_calibration_tpu_torch.detection.detector import corner_response
+from multicam_calibration_tpu_torch.detection import detector
+from multicam_calibration_tpu_torch.detection.detector import (
+    corner_response,
+    find_corner_candidates,
+)
 from multicam_calibration_tpu_torch.ops import corner_cuda
+from multicam_calibration_tpu_torch.utils.metrics import metrics
 
 NMS = 4
 SIGMAS = [1.5, 3.5, 6.0, 9.0]  # stage 1 and the coarse ladder (_COARSE_SCALES)
@@ -117,23 +123,29 @@ def test_kernel_path_matches_conv_path_inside_border():
         corner_response(torch.as_tensor(g), impl="pallas")
 
 
-def test_wrappers_run_twins_on_cpu_and_count_no_launch():
+def test_wrappers_run_twins_on_cpu_and_count_no_launch(monkeypatch):
+    """On CPU tensors the detector's two call sites choose the twins and
+    launch nothing; the wrappers themselves refuse CPU tensors."""
     g = torch.as_tensor(_gray((1, 70, 90), seed=4))
-    before = (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches)
-    resp, peak = corner_cuda.corner_response_peaks(g, 3.5, NMS)
-    resp_r, peak_r = corner_cuda.corner_response_peaks_reference(g, 3.5, NMS)
-    assert torch.equal(resp, resp_r) and torch.equal(peak, peak_r)
-    assert torch.equal(
-        corner_cuda.corner_response_fused(g, 3.5), corner_cuda.corner_response_fused_reference(g, 3.5)
-    )
-    after = (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches)
-    assert after == before
+    kernels = ("corner_peaks_kernel", "corner_response_kernel")
+    before = [metrics.stage_times.get(f"{k}.launches", 0) for k in kernels]
+    calls = []
+    real = corner_cuda.corner_response_peaks_reference
+    monkeypatch.setattr(detector, "corner_response_peaks_reference",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    find_corner_candidates(g, nms_radius=NMS, sigma=3.5)
+    assert len(calls) == 1
+    assert torch.equal(corner_response(g, 3.5), corner_cuda.corner_response_fused_reference(g, 3.5))
+    assert [metrics.stage_times.get(f"{k}.launches", 0) for k in kernels] == before
     # f64 grays are cast down to f32, as the Pallas kernel does.
-    r64, p64 = corner_cuda.corner_response_peaks(g.double(), 3.5, NMS)
+    resp, peak = real(g, 3.5, NMS)
+    r64, p64 = real(g.double(), 3.5, NMS)
     assert r64.dtype == torch.float32 and torch.equal(r64, resp) and torch.equal(p64, peak)
-    # The launch path refuses a CPU tensor instead of running the twin.
+    # The wrappers refuse a CPU tensor instead of running the twin.
     with pytest.raises(ValueError, match="CUDA tensor"):
-        corner_cuda._on_card(g, 1.5, NMS, True, "corner_peaks_kernel")
+        corner_cuda.corner_response_peaks(g, 1.5, NMS)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        corner_cuda.corner_response_fused(g, 1.5)
 
 
 def test_gaussian_taps_match_pallas_taps():

@@ -49,16 +49,24 @@ from multicam_calibration_tpu_torch.models import lm_core
 from multicam_calibration_tpu_torch.models.bundle_adjustment import _params_to_arrays
 from multicam_calibration_tpu_torch.ops import ba_cuda, corner_cuda, pose_cuda
 from multicam_calibration_tpu_torch.ops.rotation import so3_exp
+from multicam_calibration_tpu_torch.utils.metrics import metrics
 
 DETECT_FRAMES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "multicam_calibration_tpu_torch", "data", "detect_frames.npz",
 )
 
+GN_FRAMES = "estimate_pose.gn_kernel.frames"  # camera-frames the pose kernel polished
+
 RECIPE = dict(
     jac_dtype="float32", block_dtype="float32", grad_dtype="float32",
     cost_dtype="float32",
 )
+
+
+def launched(kernel):
+    """``kernel``'s launches so far: its ``utils.metrics`` counter."""
+    return metrics.stage_times.get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -198,14 +206,14 @@ def test_kernels_match_twins(device, loss_linear):
     cam, poses, obs, mask, objp = _problem(device, shift=3e-5)  # F=23: ragged tile
     prepared = ba_cuda.ba_prepare_obs(obs, mask)
     kw = dict(loss_linear=loss_linear)
-    launches = ba_cuda.ba_chunk_blocks.launches
+    launches = launched("ba_blocks_kernel")
     got = ba_cuda.ba_chunk_blocks(cam, poses, *prepared, objp, **kw)
-    assert ba_cuda.ba_chunk_blocks.launches == launches + 1
-    _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(cam, poses, *prepared, objp, **kw))
-    launches = ba_cuda.ba_chunk_cost.launches
+    assert launched("ba_blocks_kernel") == launches + 1
+    _assert_blocks_close(got, lm_core.ba_chunk_blocks_reference(cam, poses, *prepared, objp, **kw))
+    launches = launched("ba_cost_kernel")
     cost = ba_cuda.ba_chunk_cost(cam, poses, *prepared, objp, **kw)
-    assert ba_cuda.ba_chunk_cost.launches == launches + 1
-    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(cam, poses, *prepared, objp, **kw))
+    assert launched("ba_cost_kernel") == launches + 1
+    _assert_cost_close(cost, lm_core.ba_chunk_cost_reference(cam, poses, *prepared, objp, **kw))
     # No float atomics: a second launch is bit-identical.
     again = ba_cuda.ba_chunk_blocks(cam, poses, *prepared, objp, **kw)
     for a, b in zip(got, again):
@@ -231,14 +239,14 @@ def test_kernels_match_twins_at_edges(device, case, loss_linear):
     args = (cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp)
     kw = dict(loss_linear=loss_linear)
     got = ba_cuda.ba_chunk_blocks(*args, **kw)
-    _assert_blocks_close(got, ba_cuda.ba_chunk_blocks_reference(*args, **kw))
+    _assert_blocks_close(got, lm_core.ba_chunk_blocks_reference(*args, **kw))
     for a, b in zip(got, ba_cuda.ba_chunk_blocks(*args, **kw)):
         assert torch.equal(a, b)
     Fr = poses.shape[0] - case.get("pad", 0)
     for x in (got[1][Fr:], got[2][:, Fr:], got[5][:, Fr:]):
         assert x.numel() == 0 or float(x.abs().max()) == 0.0
     cost = ba_cuda.ba_chunk_cost(*args, **kw)
-    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(*args, **kw))
+    _assert_cost_close(cost, lm_core.ba_chunk_cost_reference(*args, **kw))
     for a, b in zip(cost, ba_cuda.ba_chunk_cost(*args, **kw)):
         assert torch.equal(a, b)
     assert cost[0][:, Fr:].numel() == 0 or float(cost[0][:, Fr:].abs().max()) == 0.0
@@ -263,7 +271,7 @@ def test_cost_kernel_matches_twin_at_scale(device, case, loss_linear):
     args = (cam, poses, *ba_cuda.ba_prepare_obs(obs, mask), objp)
     kw = dict(loss_linear=loss_linear)
     cost = ba_cuda.ba_chunk_cost(*args, **kw)
-    _assert_cost_close(cost, ba_cuda.ba_chunk_cost_reference(*args, **kw))
+    _assert_cost_close(cost, lm_core.ba_chunk_cost_reference(*args, **kw))
     for _ in range(20):
         for a, b in zip(cost, ba_cuda.ba_chunk_cost(*args, **kw)):
             assert torch.equal(a, b)
@@ -306,11 +314,11 @@ def test_wrappers_take_only_what_the_kernels_read(device):
             with pytest.raises(ValueError):
                 fn(bad[0], bad[1], *prepared, bad[2])
     opts = lm_core.LMOptions(max_iters=3, block_impl="cuda", cost_impl="cuda", **RECIPE)
-    before = ba_cuda.ba_chunk_blocks.launches
+    before = launched("ba_blocks_kernel")
     _, _, info = lm_core.lm_solve(cam.float(), poses.float(), obs.float(), mask,
                                   objp.float(), opts)
     assert np.isfinite(info["final_cost"])
-    assert ba_cuda.ba_chunk_blocks.launches - before == info["n_iters"]
+    assert launched("ba_blocks_kernel") - before == info["n_iters"]
 
 
 @pytest.mark.cuda
@@ -336,16 +344,16 @@ def test_lm_solve_through_kernels_matches_plain(device):
     # The default routes: both kernels, one block build per iteration and one
     # cost launch per cost evaluation.
     assert base.block_impl == base.cost_impl == "auto"
-    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+    before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
     _, _, info_k = lm_core.lm_solve(cam, poses, obs, mask, objp, base)
-    assert ba_cuda.ba_chunk_blocks.launches - before[0] == info_k["n_iters"]
-    assert ba_cuda.ba_chunk_cost.launches - before[1] == info_k["nfev"]
-    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+    assert launched("ba_blocks_kernel") - before[0] == info_k["n_iters"]
+    assert launched("ba_cost_kernel") - before[1] == info_k["nfev"]
+    before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
     _, _, info_p = lm_core.lm_solve(
         cam, poses, obs, mask, objp,
         dataclasses.replace(base, block_impl="torch", cost_impl="torch"),
     )
-    assert (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches) == before
+    assert (launched("ba_blocks_kernel"), launched("ba_cost_kernel")) == before
     ck, cp = info_k["final_cost"], info_p["final_cost"]
     assert abs(ck - cp) <= 1e-3 * cp, (ck, cp)
 
@@ -356,10 +364,10 @@ def test_lm_solve_through_kernels_matches_plain(device):
 def test_corner_kernel_matches_twin(device, shape, sigma):
     gray = torch.rand(shape, generator=torch.Generator(device=device).manual_seed(1),
                       device=device)
-    before = (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches)
+    before = (launched("corner_peaks_kernel"), launched("corner_response_kernel"))
     resp, peak = corner_cuda.corner_response_peaks(gray, sigma, 4)
     resp_f = corner_cuda.corner_response_fused(gray, sigma)
-    assert (corner_cuda.corner_response_peaks.launches, corner_cuda.corner_response_fused.launches) \
+    assert (launched("corner_peaks_kernel"), launched("corner_response_kernel")) \
         == (before[0] + 1, before[1] + 1)
     resp_t, peak_t = corner_cuda.corner_response_peaks_reference(gray, sigma, 4)
     assert peak.dtype == torch.bool and resp.dtype == torch.float32
@@ -375,9 +383,9 @@ def test_detection_on_card_matches_cpu(device):
     pick = [0, 8, 12, 14]  # clean, hard, 12 px and 16 px blur
     frames = list(d["frames"][pick])
     board = tuple(int(v) for v in d["board_shape"])
-    before = corner_cuda.corner_response_peaks.launches
+    before = launched("corner_peaks_kernel")
     got = mct.detect_chessboard_batch(frames, board_shape=board, device=device)
-    assert corner_cuda.corner_response_peaks.launches - before >= 2  # stage 1 + the ladder
+    assert launched("corner_peaks_kernel") - before >= 2  # stage 1 + the ladder
     ref = mct.detect_chessboard_batch(frames, board_shape=board, device="cpu")
     assert sorted(got) == sorted(ref) == list(range(len(pick)))
     for i in ref:
@@ -392,11 +400,11 @@ def test_chunked_block_build_through_kernel_matches_dense(device):
     build at the kernel-parity tolerances."""
     cam, poses, obs, mask, objp = _problem(device, n_frames=23)
     opts = lm_core.LMOptions(**RECIPE)
-    before = ba_cuda.ba_chunk_blocks.launches
+    before = launched("ba_blocks_kernel")
     dense = lm_core.build_normal_blocks(cam, poses, obs, mask, objp, opts)
     chunked = lm_core.build_normal_blocks(
         cam, poses, obs, mask, objp, dataclasses.replace(opts, frame_chunk=7))
-    assert ba_cuda.ba_chunk_blocks.launches - before == 1 + 4
+    assert launched("ba_blocks_kernel") - before == 1 + 4
     C, F = cam.shape[0], poses.shape[0]
     as_dense = (chunked.U, chunked.V.reshape(-1, 6, 6)[:F],
                 chunked.W.movedim(1, 0).reshape(C, -1, 12, 6)[:, :F], chunked.g_cam,
@@ -423,10 +431,10 @@ def test_pose_mask_through_kernels_matches_twin(device):
     _assert_blocks_close(tuple(got[:5]) + (got.cost.reshape(1),),
                          tuple(ref[:5]) + (ref.cost.reshape(1),))
     cam_free = torch.zeros((cam.shape[0], 12), dtype=torch.float64, device=device)
-    before = ba_cuda.ba_chunk_blocks.launches
+    before = launched("ba_blocks_kernel")
     _, poses2, info = lm_core.lm_solve(cam, poses + 1e-3, obs, mask, objp, opts,
                                        cam_free=cam_free, pose_free=pose_free)
-    assert ba_cuda.ba_chunk_blocks.launches - before == info["n_iters"] > 0
+    assert launched("ba_blocks_kernel") - before == info["n_iters"] > 0
     frozen = pose_free[:, 0] == 0
     assert torch.equal(poses2[frozen], (poses + 1e-3)[frozen])
     assert info["final_cost"] < info["initial_cost"]
@@ -451,11 +459,11 @@ def test_calibrate_and_bundle_adjust_on_card_match_cpu(device):
     np.testing.assert_allclose(card[0], cpu[0], atol=1e-5)
     recipe = dict(block_dtype="float32", cost_dtype="float32", solve_dtype="float32",
                   grad_dtype="float32", gtol_rel=1e-6, lambda_escalation=3.0)
-    before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+    before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
     ba_card = mct.bundle_adjust(rig.all_calib_uvs, card[0], card[1], rig.calib_objpoints,
                                 card[2], verbose=False, device=device)
-    assert ba_cuda.ba_chunk_blocks.launches > before[0]
-    assert ba_cuda.ba_chunk_cost.launches > before[1]
+    assert launched("ba_blocks_kernel") > before[0]
+    assert launched("ba_cost_kernel") > before[1]
     ba_cpu = mct.bundle_adjust(rig.all_calib_uvs, card[0], card[1], rig.calib_objpoints,
                                card[2], verbose=False, device="cpu", lm_options=recipe)
     np.testing.assert_array_equal(ba_card[3], ba_cpu[3])
@@ -619,11 +627,11 @@ def test_rolling_update_on_card_launches_both_kernels(device, monkeypatch):
                                 window=16, device=device)
     assert cal._opts.block_dtype == "float32" and cal._opts.lambda_escalation == 3.0
     for lo in range(0, 24, 6):
-        before = (ba_cuda.ba_chunk_blocks.launches, ba_cuda.ba_chunk_cost.launches)
+        before = (launched("ba_blocks_kernel"), launched("ba_cost_kernel"))
         info = cal.update(rig.all_calib_uvs[:, lo:lo + 6])
         solve = infos[-1][2]
-        assert ba_cuda.ba_chunk_blocks.launches - before[0] == solve["n_iters"] == info["n_iters"]
-        assert ba_cuda.ba_chunk_cost.launches - before[1] == solve["nfev"]
+        assert launched("ba_blocks_kernel") - before[0] == solve["n_iters"] == info["n_iters"]
+        assert launched("ba_cost_kernel") - before[1] == solve["nfev"]
         assert np.isfinite(info["cost"])
     assert cal.occupancy == 16
 
@@ -639,9 +647,9 @@ def test_pose_kernel_matches_twin(device, case):
                          "board_7x10": (64, 8, 35, (7, 10))}[case]
     args = _pose_problem(device, C, F, seed=seed, board_shape=board)
     assert args[4].shape[0] == board[0] * board[1]
-    before = pose_cuda.pose_gn_refine.launches
+    before = launched("pose_gn_kernel")
     got = pose_cuda.pose_gn_refine(*args)
-    assert pose_cuda.pose_gn_refine.launches == before + 1
+    assert launched("pose_gn_kernel") == before + 1
     assert got.shape == (C, F, 6) and got.device == args[0].device
     _assert_poses_match(got, args)
     again = pose_cuda.pose_gn_refine(*args)  # no float atomics: the same bits
@@ -655,7 +663,7 @@ def test_pose_kernel_on_a_singular_frame(device):
     the twin's Cholesky makes it; an undetected frame is NaN."""
     args = _singular_problem(device)
     got = pose_cuda.pose_gn_refine(*args)
-    ref = pose_cuda.pose_gn_refine_reference(*args)
+    ref = tinit.pose_gn_refine_reference(*args)
     assert bool(ref.isnan().all()) and bool(got.isnan().all())
 
 
@@ -665,8 +673,6 @@ def test_pose_stage_launches_once_per_slab(device, monkeypatch):
     slab of POSE_BATCH camera-frames, the counter estimate_pose.gn_kernel.frames
     raised by the slab's camera-frames, and each slab's poses those of the
     twin on the slab's inputs."""
-    from multicam_calibration_tpu_torch.utils.metrics import metrics
-
     rig = mct.make_synthetic_rig(n_cameras=8, n_frames=24, noise_px=0.3, dropout=0.2, seed=33)
     uvs = torch.as_tensor(rig.all_calib_uvs, device=device)
     K = torch.as_tensor(np.stack([k for k, _ in rig.all_intrinsics]), device=device)
@@ -677,11 +683,11 @@ def test_pose_stage_launches_once_per_slab(device, monkeypatch):
     monkeypatch.setattr(tinit, "pose_gn_refine",
                         lambda *a: slabs.append((a, real(*a))) or slabs[-1][1])
     monkeypatch.setattr(tinit, "POSE_BATCH", 8 * 10)  # slabs of 10, 10 and 4 frames
-    before = (pose_cuda.pose_gn_refine.launches,
-              metrics.stage_times.get(pose_cuda.COUNTER, 0))
+    before = (launched("pose_gn_kernel"),
+              metrics.stage_times.get(GN_FRAMES, 0))
     got = tinit._batched_estimate_pose(uvs, K, dist, objp)
-    assert pose_cuda.pose_gn_refine.launches == before[0] + 3
-    assert metrics.stage_times[pose_cuda.COUNTER] == before[1] + 8 * 24
+    assert launched("pose_gn_kernel") == before[0] + 3
+    assert metrics.stage_times[GN_FRAMES] == before[1] + 8 * 24
     assert [a[2].shape[1] for a, _ in slabs] == [10, 10, 4]
     assert torch.equal(got.isnan(), torch.cat([out for _, out in slabs], 1).isnan())
     for args, out in slabs:

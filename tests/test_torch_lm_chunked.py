@@ -130,8 +130,11 @@ def test_chunked_respects_free_masks(problem):
 
 def test_chunked_kernel_route_matches_dense(problem, monkeypatch):
     """The kernel route's chunked slabs (``_prepare``) through the kernels'
-    plain twins, which the wrappers run for CPU tensors."""
+    plain twins, put in the wrappers' place (the wrappers refuse CPU
+    tensors)."""
     monkeypatch.setattr(tlm, "_route", lambda impl, name, ok, req, objp: ok)
+    monkeypatch.setattr(tlm.ba_cuda, "ba_chunk_blocks", tlm.ba_chunk_blocks_reference)
+    monkeypatch.setattr(tlm.ba_cuda, "ba_chunk_cost", tlm.ba_chunk_cost_reference)
     recipe = tlm.LMOptions(jac_dtype="float32", block_dtype="float32",
                            grad_dtype="float32", cost_dtype="float32")
     assert tlm._cuda_block_build(recipe, torch.float64, _t(problem)[4])

@@ -15,9 +15,12 @@ tests/test_torch_cuda.py. Skips where no C++20 compiler is installed.
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
+import multicam_calibration_tpu_torch as mct
+from multicam_calibration_tpu_torch.models import initialize as tinit
 from multicam_calibration_tpu_torch.ops import pose_cuda
 from multicam_calibration_tpu_torch.utils.metrics import metrics
 from tests.test_torch_ba_kernels_emulated import build_emulated
@@ -32,6 +35,14 @@ SRC = os.path.join(
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return pose_cuda.bind(build_emulated(SRC, tmp_path_factory.mktemp("pose_kernels_emulated")))
+
+
+def _estimate_poses_inputs():
+    """(uvs, K, dist, objpoints) of a 3-camera, 5-frame synthetic rig on the CPU."""
+    rig = mct.make_synthetic_rig(n_cameras=3, n_frames=5, noise_px=0.3, dropout=0.2, seed=37)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    return (as_t(rig.all_calib_uvs), as_t(np.stack([k for k, _ in rig.all_intrinsics])),
+            as_t(np.stack([d for _, d in rig.all_intrinsics])), as_t(rig.calib_objpoints))
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +62,7 @@ def test_emulated_pose_kernel_matches_twin(lib, problem):
 
 def test_emulated_pose_kernel_on_a_singular_frame(lib):
     args = _singular_problem("cpu")
-    assert bool(pose_cuda.pose_gn_refine_reference(*args).isnan().all())
+    assert bool(tinit.pose_gn_refine_reference(*args).isnan().all())
     assert bool(pose_cuda._launch(lib, 0, *args).isnan().all())
 
 
@@ -71,14 +82,25 @@ def test_emulated_launch_refuses_an_empty_board(lib):
         pose_cuda._launch(lib, 0, poses0, cam12, uvs, mask, objp)
 
 
-def test_cpu_tensors_take_the_twin_and_count_no_kernel_frames(problem):
-    before = (pose_cuda.pose_gn_refine.launches, metrics.stage_times.get(pose_cuda.COUNTER))
-    got = pose_cuda.pose_gn_refine(*problem)
-    assert pose_cuda.pose_gn_refine.launches == before[0]
-    assert metrics.stage_times[pose_cuda.COUNTER] == (before[1] or 0)
-    ref = pose_cuda.pose_gn_refine_reference(*problem)
+def test_cpu_tensors_take_the_twin_and_count_no_kernel_frames(problem, monkeypatch):
+    """On CPU tensors ``initialize._estimate_poses`` chooses the twin,
+    launches nothing and counts 0 kernel frames; the wrapper refuses them."""
+    frames, launches = "estimate_pose.gn_kernel.frames", "pose_gn_kernel.launches"
+    before = (metrics.stage_times.get(launches, 0), metrics.stage_times.get(frames))
+    calls, twin = [], tinit.pose_gn_refine_reference
+    monkeypatch.setattr(tinit, "pose_gn_refine_reference",
+                        lambda *a: calls.append(a) or twin(*a))
+    rig_uvs, K, dist, objp = _estimate_poses_inputs()
+    got = tinit._estimate_poses(rig_uvs, K, dist, objp)
+    assert len(calls) == 1 and got.shape == rig_uvs.shape[:2] + (6,)
+    assert metrics.stage_times.get(launches, 0) == before[0]
+    assert metrics.stage_times[frames] == (before[1] or 0)
+    ref = twin(*calls[0])
     assert torch.equal(got.isnan(), ref.isnan())
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pose_cuda.pose_gn_refine(*problem)
+    assert metrics.stage_times.get(launches, 0) == before[0]
 
 
 def test_the_card_check_refuses_tensors_off_the_card(problem):

@@ -167,8 +167,8 @@ def test_update_on_the_recipe_routes_through_both_kernels(streams, monkeypatch):
 
     monkeypatch.setattr(tlm, "_route", lambda impl, name, ok, req, objp: impl != "torch" and ok)
     monkeypatch.setattr(ba_cuda, "ba_chunk_blocks",
-                        counted("blocks", ba_cuda.ba_chunk_blocks_reference))
-    monkeypatch.setattr(ba_cuda, "ba_chunk_cost", counted("cost", ba_cuda.ba_chunk_cost_reference))
+                        counted("blocks", tlm.ba_chunk_blocks_reference))
+    monkeypatch.setattr(ba_cuda, "ba_chunk_cost", counted("cost", tlm.ba_chunk_cost_reference))
     infos = []
     lm_solve = tstream.lm_solve
     monkeypatch.setattr(tstream, "lm_solve",
