@@ -17,13 +17,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import warnings
 
 import numpy as np
 import torch
 
 from ..device import cuda_device, resolve_device, with_highest_precision
 from ..ops.projection import project_points
+from ..ops.reductions import masked_mean, nanmedian
 from ..ops.transforms import euclidean_to_homogenous, get_transformation_matrix
 from ..utils.metrics import metrics
 from .initialize import _host as _np
@@ -184,6 +184,76 @@ def bundle_adjustment_sparsity(all_calib_uvs):
     return A
 
 
+def _upload(all_calib_uvs, device):
+    """The detections as an f64 tensor on ``device`` (a tensor as given).
+    To a CUDA device they go through a pinned staging copy: for stage64.ba's
+    0.72 GB, 0.05 s on an H100 once the host allocator holds the block,
+    against 0.13 s from pageable memory."""
+    if isinstance(all_calib_uvs, torch.Tensor):
+        return all_calib_uvs
+    dev = resolve_device(device)
+    host = torch.from_numpy(np.asarray(all_calib_uvs, np.float64))
+    if dev.type != "cuda":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def _read_back(t):
+    """numpy copy of tensor ``t``, its bytes added to the counter
+    ``ba.readback_bytes``."""
+    metrics.count("ba.readback_bytes", t.numel() * t.element_size())
+    return _np(t)
+
+
+def _frame_errors(err):
+    """Per-frame statistics of point errors ``err`` (C, F, N), NaN where a
+    point is not observed, reduced on err's device in its dtype.
+
+    Returns (worst, mean), each (F,): ``worst`` is the largest per-camera
+    mean error, 0 where no camera observes a point of the frame (numpy's
+    ``nan_to_num(nanmax(nanmean(err, -1), 0))``); ``mean`` is the mean over
+    every camera and point, NaN where none is observed
+    (``nanmean(err, (0, 2))``).
+    """
+    seen = ~torch.isnan(err)
+    cam_mean = masked_mean(err, seen, axis=-1)  # (C, F)
+    worst = torch.where(torch.isnan(cam_mean), -torch.inf, cam_mean).amax(0)
+    worst = torch.where(worst == -torch.inf, 0.0, worst)
+    return worst, masked_mean(err, seen, axis=(0, 2))
+
+
+def _select_frames(all_calib_uvs, all_extrinsics, all_intrinsics, calib_objpoints,
+                   calib_poses, n_frames, outlier_threshold, seed, verbose, device):
+    """:func:`select_ba_frames`, also returning the detections as the f64
+    tensor the statistics were reduced from (on ``device``)."""
+    with metrics.span("ba.select_frames.predict"):
+        uvs = _upload(all_calib_uvs, device)
+        full = ~torch.isnan(uvs).any(-1).any(-1)  # (C, F_all): seen whole
+        two_cam = full.sum(0) > 1
+        frames = torch.nonzero(two_cam)[:, 0]
+        pred = predict_calib_uvs(all_extrinsics, all_intrinsics, calib_objpoints,
+                                 _as_tensor(calib_poses, uvs)[frames])
+        err = torch.linalg.vector_norm(uvs[:, frames] - pred, dim=-1)  # NaN: unobserved
+        worst, _ = _frame_errors(err)
+        threshold = outlier_threshold
+        if threshold is None:
+            threshold = float(_read_back(5 * nanmedian(err.reshape(-1))))
+        keep = torch.zeros_like(two_cam)
+        keep[frames] = ~(worst > threshold)
+        two_cam, keep = _read_back(torch.stack([two_cam, keep]))
+    with metrics.span("ba.select_frames.host"):
+        use_frames = np.nonzero(keep)[0]
+        if verbose:
+            print(
+                f"Excluding {int(two_cam.sum() - keep.sum())} out of {len(use_frames)} "
+                f"frames based on an outlier threshold of {threshold}"
+            )
+        if n_frames is not None and n_frames < len(use_frames):
+            rng = np.random.default_rng(seed)
+            use_frames = np.sort(rng.choice(use_frames, n_frames, replace=False))
+    return use_frames, uvs
+
+
 def select_ba_frames(
     all_calib_uvs,
     all_extrinsics,
@@ -200,39 +270,17 @@ def select_ba_frames(
 
     Frames fully detected by >= 2 cameras; drop frames whose worst
     per-camera mean reprojection error exceeds ``outlier_threshold``
-    (default 5 x median error at the initial parameters); random-subsample
-    to ``n_frames``. The forward model runs on ``device`` (None: the CUDA
-    device); the selection itself is host numpy.
+    (default 5 x median error at the initial parameters, numpy's median:
+    the mean of the two middle errors on an even count); random-subsample
+    to ``n_frames`` with ``numpy.random.default_rng(seed)``.
+
+    Numpy detections go to ``device`` (None: the CUDA device) once, in f64;
+    a tensor is used where it is. The forward model, the errors and their
+    reductions run there; only per-frame flags and the threshold come back
+    to the host, which draws the subsample. Returns a numpy index array.
     """
-    with metrics.span("ba.select_frames.host"):
-        all_calib_uvs = np.asarray(all_calib_uvs)
-        full = ~np.isnan(all_calib_uvs).any((-1, -2))
-        use_frames = np.nonzero(full.sum(0) > 1)[0]
-    with metrics.span("ba.select_frames.predict"):
-        pred = _np(
-            predict_calib_uvs(
-                all_extrinsics, all_intrinsics, calib_objpoints,
-                np.asarray(calib_poses)[use_frames], device=device,
-            )
-        )
-    with metrics.span("ba.select_frames.host"):
-        err = np.linalg.norm(all_calib_uvs[:, use_frames] - pred, axis=-1)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", category=RuntimeWarning)
-            worst_mean_err = np.nanmax(np.nanmean(err, axis=-1), axis=0)
-            if outlier_threshold is None:
-                outlier_threshold = 5 * np.nanmedian(err)
-        exclude = np.nan_to_num(worst_mean_err) > outlier_threshold
-        use_frames = use_frames[~exclude]
-        if verbose:
-            print(
-                f"Excluding {int(exclude.sum())} out of {len(use_frames)} frames "
-                f"based on an outlier threshold of {outlier_threshold}"
-            )
-        if n_frames is not None and n_frames < len(use_frames):
-            rng = np.random.default_rng(seed)
-            use_frames = np.sort(rng.choice(use_frames, n_frames, replace=False))
-    return use_frames
+    return _select_frames(all_calib_uvs, all_extrinsics, all_intrinsics, calib_objpoints,
+                          calib_poses, n_frames, outlier_threshold, seed, verbose, device)[0]
 
 
 def _emit_lm_history(info, verbose):
@@ -273,12 +321,20 @@ def _ba_fingerprint(all_calib_uvs, seed, n_frames, outlier_threshold):
     return h.hexdigest()
 
 
+def _mean_frame_errors(cam, poses, obs, mask, objpoints):
+    """(F,) mean reprojection error of each frame over its observed points,
+    NaN where none is observed, on the device of the inputs."""
+    err = torch.linalg.vector_norm(compute_residuals(cam, poses, obs, mask, objpoints), dim=-1)
+    return _frame_errors(torch.where(mask, err, torch.nan))[1]
+
+
 def _repair_bad_poses(cam, poses, obs, mask, objpoints, opts, threshold=5.0):
     """Re-solve frame poses the robust LM left in a bad basin.
 
     Flag frames whose mean reprojection error exceeds ``threshold`` x
-    median, re-initialize their poses from per-camera planar PnP +
-    consensus at the refined cameras, then polish only those poses
+    median (numpy's median over frames, reduced on the device; only the
+    (F,) flags come back), re-initialize their poses from per-camera planar
+    PnP + consensus at the refined cameras, then polish only those poses
     (cameras and healthy poses frozen through ``cam_free``/``pose_free``;
     on CUDA with the f32 recipe the polish runs through the kernels with
     the pose mask). A repaired pose replaces the original only where it
@@ -288,13 +344,9 @@ def _repair_bad_poses(cam, poses, obs, mask, objpoints, opts, threshold=5.0):
 
     dev, dtype = poses.device, poses.dtype
     with metrics.span("ba.pose_repair.flag"):
-        err = np.linalg.norm(_np(compute_residuals(cam, poses, obs, mask, objpoints)), axis=-1)
-        mask_np = _np(mask)
-        with np.errstate(invalid="ignore"), warnings.catch_warnings():
-            warnings.simplefilter("ignore", category=RuntimeWarning)
-            per_frame = np.nanmean(np.where(mask_np, err, np.nan), axis=(0, 2))  # (F,)
-        med = np.nanmedian(per_frame)
-        bad = np.nan_to_num(per_frame, nan=0.0) > threshold * med
+        per_frame = _mean_frame_errors(cam, poses, obs, mask, objpoints)
+        bad_t = torch.nan_to_num(per_frame, nan=0.0) > threshold * nanmedian(per_frame)
+        bad = _read_back(bad_t)
     metrics.count("ba.pose_repair.flagged", int(bad.sum()))
     if not bad.any():
         return poses, 0
@@ -302,10 +354,12 @@ def _repair_bad_poses(cam, poses, obs, mask, objpoints, opts, threshold=5.0):
     # Fresh PnP init for the bad frames at the refined camera parameters.
     with metrics.span("ba.pose_repair.reinit"):
         ext, intr = _arrays_to_params(cam.to(torch.float64))
-        obs_nan = np.where(mask_np[..., None], _np(obs.to(torch.float64)), np.nan)
         bad_ix = np.nonzero(bad)[0]
+        rows = torch.as_tensor(bad_ix, device=dev)
+        obs_nan = np.where(_np(mask[:, rows])[..., None], _np(obs[:, rows].to(torch.float64)),
+                           np.nan)
         all_poses = np.stack([
-            _np(estimate_pose(obs_nan[c][bad_ix], objpoints, *intr[c], device=dev))
+            _np(estimate_pose(obs_nan[c], objpoints, *intr[c], device=dev))
             for c in range(len(ext))
         ])
         reinit = _np(consensus_calib_poses(all_poses, ext, device=dev))
@@ -315,20 +369,15 @@ def _repair_bad_poses(cam, poses, obs, mask, objpoints, opts, threshold=5.0):
 
     with metrics.span("ba.pose_repair.solve"):
         pose_free = torch.zeros((poses_np.shape[0], 6), dtype=dtype, device=dev)
-        pose_free[torch.as_tensor(bad_ix, device=dev)] = 1.0
+        pose_free[rows] = 1.0
         cam_free = torch.zeros((cam.shape[0], 12), dtype=dtype, device=dev)
         _, poses2, _ = lm_solve(
             cam, torch.as_tensor(np.nan_to_num(poses_np), dtype=dtype, device=dev),
             obs, mask, objpoints, opts, cam_free=cam_free, pose_free=pose_free,
         )
-        err2 = np.linalg.norm(_np(compute_residuals(cam, poses2, obs, mask, objpoints)), axis=-1)
-        with np.errstate(invalid="ignore"), warnings.catch_warnings():
-            warnings.simplefilter("ignore", category=RuntimeWarning)
-            per_frame2 = np.nanmean(np.where(mask_np, err2, np.nan), axis=(0, 2))
-        improved = bad & (np.nan_to_num(per_frame2, nan=np.inf) < per_frame)
-        poses_out = _np(poses).copy()
-        poses_out[improved] = _np(poses2)[improved]
-        return torch.as_tensor(poses_out, dtype=dtype, device=dev), int(improved.sum())
+        per_frame2 = _mean_frame_errors(cam, poses2, obs, mask, objpoints)
+        improved = bad_t & (torch.nan_to_num(per_frame2, nan=torch.inf) < per_frame)
+        return torch.where(improved[:, None], poses2, poses), int(improved.sum())
 
 
 # LMOptions fields a bundle_adjust keyword (or a dict ``lm_options``) may set,
@@ -391,11 +440,18 @@ def bundle_adjust(
     in either package. On a mesh only rank 0 writes the file, and every
     rank reads it.
 
+    The detections go to the device once, in f64; the frame selection,
+    the solve's inputs and the pose repair's flag are computed there, and
+    only per-frame vectors and scalars come back (the counter
+    ``ba.readback_bytes``). A resumed call uploads them in ``ba.prepare``.
+
     Spans (``utils.metrics``): ``ba.select_frames`` (with
-    ``ba.select_frames.predict`` / ``.host`` inside), ``ba.prepare``,
-    ``ba.lm_solve``, ``ba.f64_polish``, ``ba.pose_repair`` (with
-    ``ba.pose_repair.flag`` / ``.reinit`` / ``.solve`` inside, and the
-    counter ``ba.pose_repair.flagged``).
+    ``ba.select_frames.predict``: the upload, the forward model, the
+    error reductions and the read of the per-frame flags; ``.host``: the
+    subsample and the message), ``ba.prepare``, ``ba.lm_solve``,
+    ``ba.f64_polish``, ``ba.pose_repair`` (with ``ba.pose_repair.flag`` /
+    ``.reinit`` / ``.solve`` inside, and the counter
+    ``ba.pose_repair.flagged``).
 
     Returns (adjusted_extrinsics, adjusted_intrinsics, adjusted_calib_poses,
     use_frames, result_info), all numpy.
@@ -442,21 +498,22 @@ def bundle_adjust(
         use_frames = ckpt["use_frames"]
     else:
         with metrics.span("ba.select_frames"):
-            use_frames = select_ba_frames(
+            use_frames, uvs = _select_frames(
                 all_calib_uvs, all_extrinsics, all_intrinsics, calib_objpoints,
-                calib_poses, n_frames=n_frames,
-                outlier_threshold=outlier_threshold, seed=seed, verbose=verbose,
-                device=dev,
+                calib_poses, n_frames, outlier_threshold, seed, verbose, dev,
             )
 
     with metrics.span("ba.prepare"):
-        obs_np = all_calib_uvs[:, use_frames]
-        mask_np = ~np.isnan(obs_np).any(-1)  # (C, F, N) per-point mask
+        if ckpt is not None:  # a resumed call made no selection
+            uvs = _upload(all_calib_uvs, dev)
+        frames = torch.as_tensor(use_frames, device=dev)
+        obs64 = uvs[:, frames]
+        del uvs  # the whole upload is not held through the solve
         if ckpt is not None:
-            cam0, poses0 = ckpt["cam"], ckpt["poses"]
+            cam0, poses0 = ckpt["cam"], torch.as_tensor(ckpt["poses"], device=dev)
         else:
             cam0 = _params_to_arrays(all_extrinsics, all_intrinsics)
-            poses0 = np.asarray(calib_poses)[use_frames]
+            poses0 = _as_tensor(calib_poses, device=dev)[frames]
 
         # Numerics defaults (see lm_core.LMOptions): f64 data + f32 Jacobians
         # everywhere; off the CPU also the JAX package's accelerator recipe.
@@ -468,12 +525,12 @@ def bundle_adjust(
             default_f32 = accelerator_recipe(dev)
         elif isinstance(dtype, str):
             dtype = getattr(torch, dtype)
-        as_t = lambda a, dt=dtype: torch.as_tensor(  # noqa: E731
-            np.asarray(a), dtype=dt, device=dev)
-        obs = as_t(np.nan_to_num(obs_np))
-        mask = as_t(mask_np, torch.bool)
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)  # noqa: E731
+        obs = torch.nan_to_num(obs64).to(dtype)
+        mask = ~torch.isnan(obs64).any(-1)  # (C, F, N) per-point mask
+        del obs64
         cam0_t = as_t(cam0)
-        poses0_t = as_t(np.nan_to_num(poses0))
+        poses0_t = torch.nan_to_num(poses0).to(dtype)
         objpoints = as_t(calib_objpoints)
 
         if isinstance(lm_options, dict):

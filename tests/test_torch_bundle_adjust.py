@@ -97,6 +97,19 @@ def test_select_ba_frames_matches_jax(problem):
         np.testing.assert_array_equal(got, jba.select_ba_frames(*args, verbose=False, **kw))
 
 
+def test_bundle_adjust_reads_back_no_detection_sized_array(problem):
+    """The detections go to the device once: the selection, the preparation
+    and the repair's flag read back per-frame vectors and scalars (the
+    counter ``ba.readback_bytes``), never a (C, F, N, .) array."""
+    from multicam_calibration_tpu_torch.utils.metrics import metrics
+
+    uvs = problem[1][0]
+    before = metrics.stage_times.get("ba.readback_bytes", 0)
+    tba.bundle_adjust(*problem[1], verbose=False, device=CPU)
+    read = metrics.stage_times["ba.readback_bytes"] - before
+    assert 0 < read < uvs.size * 8 / 10
+
+
 def test_residuals_and_sparsity_match_jax(problem):
     rig, (uvs, ext, intr, objp, poses) = problem
     x = tba.serialize_params(ext, intr, poses)

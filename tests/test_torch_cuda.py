@@ -14,6 +14,8 @@ cost kernel's f64 total against the f64 sum of its own fragments at rtol
 The corner kernel rounds every multiply and add as its twin does, in the
 same order, so the two are compared bit for bit; detection through it is
 compared with the CPU run of the same frames.
+``bundle_adjust``'s frame selection, reduced on the card, selects the
+frames numpy's formula and the CPU select (exactly).
 The pose kernel against its twin on the same f64 inputs
 (``_assert_poses_match``, through ``chip_smoke.compare_poses``).
 Undetected frames are NaN in both, and no frame where the twin converged
@@ -708,6 +710,27 @@ def test_pose_wrapper_takes_only_what_the_kernel_reads(device):
     for bad_args in bad.values():
         with pytest.raises(ValueError):
             pose_cuda.pose_gn_refine(*bad_args)
+
+
+@pytest.mark.cuda
+def test_ba_frame_selection_on_card_matches_numpy_and_cpu(device):
+    """``select_ba_frames`` reduces on the card: at 16 cameras x 2,000
+    frames it selects the frames numpy's formula selects
+    (``tests/test_torch_ba_stats.py``'s oracle) and the CPU run selects,
+    and ``bundle_adjust`` on the card solves over the CPU's frames."""
+    from test_torch_ba_stats import numpy_select  # tests/ is on the path (no __init__.py)
+
+    rig = mct.make_synthetic_rig(16, 2000, noise_px=0.3, dropout=0.25, seed=5)
+    ext = rig.all_extrinsics + np.random.default_rng(6).normal(0, 1e-3, rig.all_extrinsics.shape)
+    args = (rig.all_calib_uvs, ext, rig.all_intrinsics, rig.calib_objpoints, rig.calib_poses)
+    for kw in ({}, dict(n_frames=500, seed=3), dict(outlier_threshold=2.0)):
+        card = mct.select_ba_frames(*args, verbose=False, device=device, **kw)
+        np.testing.assert_array_equal(card, numpy_select(*args, **kw))
+        np.testing.assert_array_equal(card, mct.select_ba_frames(*args, verbose=False,
+                                                                 device="cpu", **kw))
+    frames = [mct.bundle_adjust(*args, verbose=False, device=d, max_iters=2,
+                                repair_poses=False)[3] for d in (device, "cpu")]
+    np.testing.assert_array_equal(*frames)
 
 
 BENCH_CELLS = ("rig6.detect_mixed", "stage64.rolling", "stage64.ba", "stage64.calib")
